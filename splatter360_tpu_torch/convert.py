@@ -50,3 +50,21 @@ def torch_state_from_flax(params: Mapping) -> dict[str, torch.Tensor]:
             raise ValueError(f"unexpected parameter {'/'.join(path)}")
         state[".".join(mods + [leaf])] = torch.from_numpy(np.ascontiguousarray(arr, np.float32))
     return state
+
+
+def lpips_state_from_flax(params: Mapping) -> dict[str, torch.Tensor]:
+    """Flax LPIPS params (splatter360_tpu/train/lpips_jax.py: vgg/conv{s}_{c}
+    kernels and biases, lin{i} vectors) -> a state_dict for train.lpips.LPIPS."""
+    if "params" in params and isinstance(params["params"], Mapping):
+        params = params["params"]
+    state = {}
+    for path, arr in _flatten(params).items():
+        if path[0] == "vgg" and len(path) == 3 and path[2] in ("kernel", "bias"):
+            name = f"vgg.{path[1]}.{'weight' if path[2] == 'kernel' else 'bias'}"
+            arr = arr.transpose(3, 2, 0, 1) if path[2] == "kernel" else arr
+        elif len(path) == 1 and path[0].startswith("lin"):
+            name = path[0]
+        else:
+            raise ValueError(f"unexpected LPIPS parameter {'/'.join(path)}")
+        state[name] = torch.from_numpy(np.ascontiguousarray(arr, np.float32))
+    return state

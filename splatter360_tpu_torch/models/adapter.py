@@ -7,6 +7,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from ..geometry.erp import erp_ray_directions
@@ -73,8 +74,10 @@ def adapt_gaussians(cfg: GaussianAdapterConfig, extrinsics, depths, opacities,
     )
 
 
-def map_pdf_to_opacity(pdf, global_step, initial: float, final: float, warm_up: int):
-    """Warm-up density -> opacity map."""
-    frac = min(float(global_step) / max(warm_up, 1), 1.0)
-    exponent = 2.0 ** (initial + frac * (final - initial))
-    return 0.5 * (1.0 - (1.0 - pdf) ** exponent + pdf ** (1.0 / exponent))
+def map_pdf_to_opacity(pdf, global_step: int, initial: float, final: float, warm_up: int):
+    """Warm-up density -> opacity map. The warm-up fraction and the exponent
+    are float32, as the JAX package computes them from its int32 step."""
+    f32 = np.float32
+    frac = min(f32(global_step) / f32(max(warm_up, 1)), f32(1.0))
+    exponent = f32(2.0) ** (f32(initial) + frac * f32(final - initial))
+    return 0.5 * (1.0 - (1.0 - pdf) ** float(exponent) + pdf ** float(f32(1.0) / exponent))

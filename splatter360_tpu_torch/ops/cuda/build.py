@@ -21,7 +21,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
 )
-SOURCES = ("composite_fwd",)
+SOURCES = ("composite_fwd", "composite_bwd")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 build_logs: dict[str, str] = {}

@@ -72,7 +72,8 @@ def render_erp_batch(
             colors = harmonics[..., 0]
         else:
             colors = sh_colors(harmonics, means, c2w[i, :3, 3], sh_degree)
-        assignments.append(assign_tiles(proj, image_shape, wrap_x=True))
+        with torch.no_grad():  # binning yields indices only: nothing to differentiate
+            assignments.append(assign_tiles(proj, image_shape, wrap_x=True))
         depth_vals = transform_depth(proj.depth, depth_mode, near[i], far[i])
         attrs.append(build_attrs(proj.mean2d, proj.conic, colors, opacities,
                                  depth_vals, proj.radius))

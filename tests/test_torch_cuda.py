@@ -8,7 +8,11 @@ Imports only torch, numpy and the port, so it runs where JAX is absent:
 Built with -fmad=false and walking each pixel's instances in the same order,
 the kernel rounds as the plain version does; the bars are still the
 compositor bars of tests/test_pallas_composite.py:47-49 (rgb/alpha 1e-4,
-depth 5e-4), and `n_processed` must be equal.
+depth 5e-4), and `n_processed` must be equal. The backward kernel sums
+over pixels and tiles with atomics, in another order than the plain
+version: each row of g_attrs is held within 2e-3 of its max|g|, the bar of
+tests/test_pallas_composite.py:66-71, and its error's L2 norm within 1e-5
+of the row's, which a kernel right only on the largest gradients fails.
 """
 
 import math
@@ -23,6 +27,8 @@ from splatter360_tpu_torch.ops.projection import project_erp, sh_colors
 from splatter360_tpu_torch.ops.tiling import assign_tiles
 
 ATOL_RGB, ATOL_DEPTH = 1e-4, 5e-4
+GRAD_TOL = 2e-3
+L2_TOL = 1e-5
 
 
 @pytest.fixture
@@ -66,20 +72,27 @@ def saturating_scene():
     return (hh, ww), np.array(means), np.array(scales), quats, sh, np.full(n, 0.92)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["random", "saturating"])
-def test_kernel_matches_plain_on_card(cuda_device, kind):
+def scene_inputs(kind, device):
+    """The compositor's inputs (one view) for a scene: attrs, gidx, starts,
+    counts, nty, ntx, w_img, wrap_x, and the assignment."""
     shape, *arrays = random_scene(20000, seed=5) if kind == "random" else saturating_scene()
-    means, scales, quats, sh, op = (torch.as_tensor(np.asarray(x, np.float32), device=cuda_device)
+    means, scales, quats, sh, op = (torch.as_tensor(np.asarray(x, np.float32), device=device)
                                     for x in arrays)
     covs = build_covariance_sym6(scales, quats)
-    c2w = torch.eye(4, device=cuda_device)
+    c2w = torch.eye(4, device=device)
     proj = project_erp(means, covs, c2w, shape, 0.1, opacities=op)
     asg = assign_tiles(proj, shape, True)
     attrs = tc.build_attrs(proj.mean2d, proj.conic, sh_colors(sh, means, c2w[:3, 3], 2), op,
                            proj.depth, proj.radius)
     args = (attrs[None], asg.gaussian_idx[None], asg.tile_starts[None], asg.tile_counts[None],
             asg.num_tiles_y, asg.num_tiles_x, float(shape[1]), True)
+    return args, asg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["random", "saturating"])
+def test_kernel_matches_plain_on_card(cuda_device, kind):
+    args, asg = scene_inputs(kind, cuda_device)
     before = tc.launch_counts[tc.KERNEL_NAME]
     got = tc.composite_forward(*args)
     assert tc.launch_counts[tc.KERNEL_NAME] == before + 1
@@ -96,8 +109,54 @@ def test_kernel_matches_plain_on_card(cuda_device, kind):
         assert (got[:, 6, 0] < n_blocks).any(), "the per-tile early exit never fired"
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["random", "saturating"])
+def test_backward_kernel_matches_plain_on_card(cuda_device, kind):
+    """The backward kernel against the plain backward on the same forward
+    planes and a seeded cotangent on planes 0-4."""
+    args, _ = scene_inputs(kind, cuda_device)
+    attrs, gidx, starts, counts, nty, ntx, w_img, wrap_x = args
+    planes = tc.composite_forward(*args)
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    g_planes = torch.zeros_like(planes)
+    g_planes[:, :, :5] = torch.randn(planes[:, :, :5].shape, generator=gen, device=cuda_device)
+    bwd = (attrs, gidx, starts, counts, g_planes, planes[:, :, 5].contiguous(),
+           planes[:, :, 6, 0].to(torch.int32), nty, ntx, w_img, wrap_x)
+    before = tc.launch_counts[tc.BWD_KERNEL_NAME]
+    got = tc.composite_backward(*bwd)
+    ref = tc.composite_backward_plain(*bwd)
+    assert tc.launch_counts[tc.BWD_KERNEL_NAME] == before + 1
+    torch.cuda.synchronize()
+    got, ref = got[0].cpu().numpy(), ref[0].cpu().numpy()
+    assert np.isfinite(got).all()
+    np.testing.assert_array_equal(got[:, 10:], 0.0)
+    for row in range(tc.N_GRAD):
+        scale = np.abs(ref[:, row]).max() + 1e-12
+        np.testing.assert_allclose(got[:, row] / scale, ref[:, row] / scale, atol=GRAD_TOL,
+                                   err_msg=f"row {row}")
+        l2 = np.linalg.norm(got[:, row] - ref[:, row]) / (np.linalg.norm(ref[:, row]) + 1e-30)
+        assert l2 <= L2_TOL, (row, l2)
+
+
+@pytest.mark.cuda
+def test_backward_launches_once_per_backward(cuda_device):
+    """composite_tiles under autograd: one forward and one backward kernel
+    call per render of (all views) and backward()."""
+    args, asg = scene_inputs("random", cuda_device)
+    attrs = args[0].clone().requires_grad_(True)
+    shape = (asg.num_tiles_y * 16, int(args[6]))
+    counts = dict(tc.launch_counts)
+    rgb, alpha, depth = tc.composite_tiles([asg], attrs, shape, torch.zeros(3, device=cuda_device),
+                                           True)
+    (rgb.sum() + alpha.sum() + depth.sum()).backward()
+    torch.cuda.synchronize()
+    assert tc.launch_counts[tc.KERNEL_NAME] == counts[tc.KERNEL_NAME] + 1
+    assert tc.launch_counts[tc.BWD_KERNEL_NAME] == counts[tc.BWD_KERNEL_NAME] + 1
+    assert torch.isfinite(attrs.grad).all() and bool((attrs.grad[..., :10] != 0).any())
+
+
 def test_kernel_refuses_bad_inputs():
-    """The wrapper checks layout and dtype before any launch (on any host)."""
+    """The wrappers check layout and dtype before any launch (on any host)."""
     attrs = torch.zeros(1, 8, 16)
     gidx = torch.zeros(1, 128, dtype=torch.int32)
     seg = torch.zeros(1, 2, dtype=torch.int32)
@@ -107,3 +166,14 @@ def test_kernel_refuses_bad_inputs():
         tc.composite_forward(attrs, gidx[:, :100], seg, seg, 1, 2, 256.0, True)
     with pytest.raises(ValueError, match="starts"):
         tc.composite_forward(attrs, gidx, seg.long(), seg, 1, 2, 256.0, True)
+    g_planes = torch.zeros(1, 2, 8, 2048)
+    lt = torch.zeros(1, 2, 2048)
+    bwd = (attrs, gidx, seg, seg, g_planes, lt, seg)
+    with pytest.raises(ValueError, match="attrs"):
+        tc.composite_backward(attrs[..., :12], *bwd[1:], 1, 2, 256.0, True)
+    with pytest.raises(ValueError, match="g_planes"):
+        tc.composite_backward(*bwd[:4], g_planes[:, :, :5], lt, seg, 1, 2, 256.0, True)
+    with pytest.raises(ValueError, match="lt_final"):
+        tc.composite_backward(*bwd[:5], lt.double(), seg, 1, 2, 256.0, True)
+    with pytest.raises(ValueError, match="nproc"):
+        tc.composite_backward(*bwd[:6], seg.float(), 1, 2, 256.0, True)
