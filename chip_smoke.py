@@ -7,19 +7,28 @@ Phases (any failure ends in a non-zero exit and no result line):
      nvcc per source, all at once);
   2. hold the forward compositor kernel against its plain PyTorch version at
      the flagship render shapes (512x1024 ERP, N = 2*512*1024 Gaussians), and
-     the backward kernel against its plain version there, with a seeded
+     (2b) the backward kernel against its plain version there, with a seeded
      cotangent;
+  2c. hold the unfused forward kernel (the path past the fused kernels'
+     table budget) against its plain version and against the fused kernel
+     at the 3-view flagship shapes (N = 3*512*1024, one view), and (2d) the
+     unfused backward kernel, with the block map and scatter, against its
+     plain version and against the fused backward there;
   3. serve N_REQUESTS HM3D-width requests through the port's entry points
-     (2 context panoramas -> encode -> N Gaussians -> 4 target ERP views with depth),
-     counting kernel launches, and compare the GPU serving path with the CPU
-     path on a small input;
+     (2 context panoramas -> encode -> N Gaussians -> 4 target ERP views with
+     depth), counting kernel launches, and (3b) compare the GPU serving path
+     with the CPU path on a small input;
   3c. take N_STEPS HM3D-width train steps (ERP supervision, LPIPS, depth L1,
      clip + Adam) through train.state's entry points, counting kernel calls
      and timing each stage; hold the backward kernel against its plain
-     version on the last step's Gaussians (4 target views);
-  3d. compare a GPU train step with a CPU one on a small input;
-  4. time each kernel and its plain version with CUDA events, and the
-     serving render stage by stage.
+     version on the last step's Gaussians (4 target views); (3d) compare a
+     GPU train step with a CPU one on a small input;
+  3e-3g. the same with 3 context panoramas, where N = 3*512*1024 takes the
+     unfused kernels: serving (3e), train steps (3f), GPU vs CPU train step
+     on a small input with both on the unfused path (3g);
+  4. time each kernel and its plain version with CUDA events, the unfused
+     path's pack and scatter apart, the fused kernels on the 3-view inputs,
+     and the serving render stage by stage.
 It prints one JSON line of per-kernel numbers, the nvidia-smi line, and as
 its last line {"ok": true, "device": {...}}.
 """
@@ -39,6 +48,8 @@ import torch
 
 H, W = 512, 1024
 N_CTX, N_TGT = 2, 4
+# context panoramas of the unfused path: N = 3*H*W is past the fused budget
+N_CTX3 = 3
 N_REQUESTS = 3
 N_STEPS = 3
 # compositor tolerances: the bars the JAX package holds its two compositor
@@ -58,6 +69,10 @@ OPS_BOX_TEST, OPS_LIVE_PAIR = 6, 23
 # terms (59 ops). The kernel's second alpha chain is its design, not work
 # the function needs.
 OPS_BWD_SUM, OPS_BWD_GATED = 16, 59
+# bytes of an instance the compositor must read: rows u v a b c o r g b depth
+# rx ry of the 16-row layout (rows 12-15 are padding), and of its gradient
+# the backward must write: rows 0-9
+INST_READ_BYTES, GRAD_WRITE_BYTES = 12 * 4, 10 * 4
 # the backward bar: 2e-3 of max|g| per row of g_attrs, the bar between the JAX
 # package's two compositor backends (tests/test_pallas_composite.py:66-71)
 GRAD_TOL = 2e-3
@@ -131,6 +146,7 @@ def render_inputs(means, covs, sh, opac, c2ws, near):
     return dict(
         attrs=torch.stack(attrs),
         gidx=torch.stack([a.gaussian_idx for a in asg]),
+        tile_ids=torch.stack([a.tile_ids for a in asg]),
         starts=torch.stack([a.tile_starts for a in asg]),
         counts=torch.stack([a.tile_counts for a in asg]),
         nty=asg[0].num_tiles_y, ntx=asg[0].num_tiles_x,
@@ -138,17 +154,40 @@ def render_inputs(means, covs, sh, opac, c2ws, near):
     )
 
 
-def compare_kernel_plain(inp, label):
-    """Kernel vs plain planes on the same inputs; returns (max_abs_err, stats)."""
-    from splatter360_tpu_torch.ops.cuda.composite import (
-        compose_planes, composite_forward, composite_forward_plain)
+def with_inst(inp):
+    """inp with the unfused path's instance blocks (pack_instances)."""
+    from splatter360_tpu_torch.ops.cuda.composite import pack_instances
 
-    args = (inp["attrs"], inp["gidx"], inp["starts"], inp["counts"],
-            inp["nty"], inp["ntx"], float(W), True)
-    pk = composite_forward(*args)
+    return dict(inp, inst=pack_instances(inp["attrs"], inp["gidx"], inp["tile_ids"],
+                                         inp["nty"] * inp["ntx"]))
+
+
+def fwd_calls(inp, unfused=False):
+    """(kernel, plain) forward calls on inp: the fused ones on attrs + gidx,
+    the unfused ones on inp["inst"]."""
+    from splatter360_tpu_torch.ops.cuda import composite as comp
+
+    seg = (inp["starts"], inp["counts"], inp["nty"], inp["ntx"], float(W), True)
+    if unfused:
+        return (lambda: comp.composite_forward_unfused(inp["inst"], *seg),
+                lambda **kw: comp.composite_forward_unfused_plain(inp["inst"], *seg, **kw))
+    return (lambda: comp.composite_forward(inp["attrs"], inp["gidx"], *seg),
+            lambda **kw: comp.composite_forward_plain(inp["attrs"], inp["gidx"], *seg, **kw))
+
+
+def compare_kernel_plain(inp, label, unfused=False):
+    """Kernel vs plain planes on the same inputs; returns (max_abs_err,
+    stats), stats holding the plain version's work counts and its ms."""
+    from splatter360_tpu_torch.ops.cuda.composite import compose_planes
+
+    kernel, plain = fwd_calls(inp, unfused)
+    pk = kernel()
     stats: dict = {}
-    pp = composite_forward_plain(*args, stats=stats)
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pp = plain(stats=stats)
+    torch.cuda.synchronize()
+    stats["plain_ms"] = 1e3 * (time.perf_counter() - t0)
     bg = torch.zeros(3, device="cuda")
     rk, ak, dk = compose_planes(pk, (H, W), inp["nty"], inp["ntx"], bg)
     rp, ap, dp = compose_planes(pp, (H, W), inp["nty"], inp["ntx"], bg)
@@ -173,14 +212,15 @@ def compare_kernel_plain(inp, label):
     return max(err_rgb, err_a, err_d), stats
 
 
-def bound_ms(inp, stats):
+def bound_ms(inp, stats, unfused=False):
     """Least time for the compositor on these inputs: the larger of
     operations over FP32 peak and bytes over HBM peak. Returns
     (bound ms, what sets it, ms of operations, ms of bytes)."""
     blocks = stats["blocks_processed"]
     ops = blocks * 128 * OPS_BOX_TEST + stats["pairs_alive"] * OPS_LIVE_PAIR
     v, t = inp["starts"].shape
-    nbytes = (blocks * 128 * (16 * 4 + 4)     # attrs rows gathered + gidx
+    row_bytes = INST_READ_BYTES + (0 if unfused else 4)  # + gidx when gathered
+    nbytes = (blocks * 128 * row_bytes
               + v * t * 8 * 2048 * 4          # output planes
               + 2 * v * t * 4)                # starts, counts
     t_ops, t_bytes = ops / PEAK_F32_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
@@ -219,21 +259,22 @@ def compare_bwd_plain(inp, label, seed):
     gp = composite_backward_plain(*args, stats=stats)
     torch.cuda.synchronize()
     plain_ms = 1e3 * (time.perf_counter() - t0)
-    rows_k, rows_p = gk[..., :N_GRAD].reshape(-1, N_GRAD), gp[..., :N_GRAD].reshape(-1, N_GRAD)
+    rel, l2 = row_errors(gk, gp)
+    rows_p = gp[..., :N_GRAD].reshape(-1, N_GRAD)
     scale = rows_p.abs().amax(dim=0)
-    rel = ((rows_k - rows_p).abs().amax(dim=0) / scale.clamp(min=1e-30)).tolist()
-    l2 = ((rows_k - rows_p).norm(dim=0) / rows_p.norm(dim=0).clamp(min=1e-30)).tolist()
     touched = rows_p != 0
     median = [float(rows_p[touched[:, i], i].abs().median()) if bool(touched[:, i].any()) else 0.0
               for i in range(N_GRAD)]
     err = float((gk - gp).abs().max())
     repeat = float((gk - gk2).abs().max())
+    repeat_rel, _ = row_errors(gk2, gk)
     print(f"[{label}] backward: views={gk.shape[0]}, per row (u v a b c o r g b depth): "
           f"max|kernel-plain|/max|plain| {[f'{x:.2e}' for x in rel]} (bar {GRAD_TOL:g}); "
           f"|kernel-plain|_2/|plain|_2 {[f'{x:.2e}' for x in l2]} (bar {L2_TOL:g}); "
           f"max|plain| {[f'{x:.3e}' for x in scale.tolist()]}; median |plain| over the "
           f"instances it touches {[f'{x:.3e}' for x in median]}; max abs err {err:.3e}; two "
-          f"kernel runs differ by {repeat:.3e}; plain {plain_ms:.1f} ms; {stats}")
+          f"kernel runs differ by {repeat:.3e}, per row /max|g| "
+          f"{[f'{x:.2e}' for x in repeat_rel]}; plain {plain_ms:.1f} ms; {stats}")
     ok = (max(rel) <= GRAD_TOL and max(l2) <= L2_TOL and bool(torch.isfinite(gk).all())
           and not bool(gk[..., N_GRAD:].any()))
     if not ok:
@@ -242,21 +283,105 @@ def compare_bwd_plain(inp, label, seed):
                 stats=stats)
 
 
-def bwd_bound_ms(inp, st):
+def bwd_bound_ms(inp, st, unfused=False):
     """Least time for the backward on these inputs (see bound_ms): one box
     cull per instance and tile of the walked blocks, OPS_BWD_SUM per gated
     pair of a walked block that fails the tile-wide gate and OPS_BWD_GATED
-    per gated pair of one that passes it; bytes: the gathered rows and gidx
-    of the walked blocks, the cotangent planes 0-4 and logT, the segments,
-    and one 40-byte gradient write per (instance, tile) of a gated block."""
+    per gated pair of one that passes it; bytes: the cotangent planes 0-4
+    and logT, the segments, and either (fused) the gathered rows and gidx of
+    the walked blocks and one gradient write per (instance, tile) of a gated
+    block, or (unfused) the instance rows read and the gradient rows written
+    per walked block, and obase."""
     ops = (st["blocks_walked"] * 128 * OPS_BOX_TEST
            + (st["pairs_walked"] - st["pairs_gated"]) * OPS_BWD_SUM
            + st["pairs_gated"] * OPS_BWD_GATED)
     v, t = inp["starts"].shape
-    nbytes = (st["blocks_walked"] * 128 * (16 * 4 + 4) + v * t * 6 * 2048 * 4
-              + st["rows_written"] * 10 * 4 + 3 * v * t * 4)
+    nbytes = v * t * 6 * 2048 * 4 + 3 * v * t * 4
+    if unfused:
+        nbytes += st["blocks_walked"] * 128 * (INST_READ_BYTES + GRAD_WRITE_BYTES) + v * t * 4
+    else:
+        nbytes += (st["blocks_walked"] * 128 * (INST_READ_BYTES + 4)
+                   + st["rows_written"] * GRAD_WRITE_BYTES)
     t_ops, t_bytes = ops / PEAK_F32_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), t_ops, t_bytes
+
+
+def unfused_bwd_args(inp, seed):
+    """The unfused backward's inputs for with_inst(inp): the unfused
+    kernel's forward planes (equal to the plain version's) and a seeded
+    normal cotangent on planes 0-4."""
+    from splatter360_tpu_torch.ops.cuda.composite import composite_forward_unfused
+
+    seg = (inp["starts"], inp["counts"])
+    planes = composite_forward_unfused(inp["inst"], *seg, inp["nty"], inp["ntx"], float(W), True)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    g_planes = torch.zeros_like(planes)
+    g_planes[:, :, :5] = torch.randn(planes[:, :, :5].shape, generator=gen, device="cuda")
+    return (inp["inst"], *seg, g_planes, planes[:, :, 5].contiguous(),
+            planes[:, :, 6, 0].to(torch.int32), inp["nty"], inp["ntx"], float(W), True)
+
+
+def row_errors(got, ref):
+    """Per row of g_attrs (u v a b c o r g b depth): max|got-ref|/max|ref|
+    and |got-ref|_2/|ref|_2."""
+    from splatter360_tpu_torch.ops.cuda.composite import N_GRAD
+
+    rows_g, rows_r = got[..., :N_GRAD].reshape(-1, N_GRAD), ref[..., :N_GRAD].reshape(-1, N_GRAD)
+    rel = ((rows_g - rows_r).abs().amax(dim=0) / rows_r.abs().amax(dim=0).clamp(min=1e-30)).tolist()
+    l2 = ((rows_g - rows_r).norm(dim=0) / rows_r.norm(dim=0).clamp(min=1e-30)).tolist()
+    return rel, l2
+
+
+def compare_unfused_bwd_plain(inp, label, seed):
+    """The unfused backward (kernel, block map, scatter; twice) against its
+    plain version through the same map and scatter, and against the fused
+    backward kernel on the same inputs: per row against GRAD_TOL and L2_TOL.
+    Returns the largest absolute error, the repeat differences of the
+    kernel's blocks and of the scattered gradients, the plain version's ms
+    and its work counts."""
+    from splatter360_tpu_torch.ops.cuda import composite as comp
+
+    args = unfused_bwd_args(inp, seed)
+    inst, starts, counts, g_planes, lt, nproc = args[:6]
+    n = inp["attrs"].shape[1]
+
+    def scatter(dout):
+        return comp.scatter_out_blocks(dout, inp["gidx"], starts, counts, nproc, n)
+
+    dk, dk2 = comp.composite_backward_unfused(*args), comp.composite_backward_unfused(*args)
+    gk, gk2 = scatter(dk), scatter(dk2)
+    stats: dict = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dp = comp.composite_backward_unfused_plain(*args, stats=stats)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    gp = scatter(dp)
+    gf = comp.composite_backward(inp["attrs"], inp["gidx"], starts, counts, *args[3:])
+    _, live = comp.out_block_map(starts, counts, nproc, dk.shape[1])
+    blocks_repeat = float((dk[live] - dk2[live]).abs().max())
+    repeat = float((gk - gk2).abs().max())
+    repeat_rel, _ = row_errors(gk2, gk)
+    rel, l2 = row_errors(gk, gp)
+    rel_f, l2_f = row_errors(gk, gf)
+    err = float((gk - gp).abs().max())
+    scale = gp[..., :comp.N_GRAD].reshape(-1, comp.N_GRAD).abs().amax(dim=0)
+    print(f"[{label}] unfused backward: views={gk.shape[0]}, per row (u v a b c o r g b depth) "
+          f"against the plain version: max|kernel-plain|/max|plain| {[f'{x:.2e}' for x in rel]} "
+          f"(bar {GRAD_TOL:g}), L2 {[f'{x:.2e}' for x in l2]} (bar {L2_TOL:g}); against the fused "
+          f"backward kernel: {[f'{x:.2e}' for x in rel_f]}, L2 {[f'{x:.2e}' for x in l2_f]}; "
+          f"max|plain| {[f'{x:.3e}' for x in scale.tolist()]}; max abs err {err:.3e}; two runs: "
+          f"live out-blocks differ by {blocks_repeat:.3e}, scattered gradients by {repeat:.3e}, "
+          f"per row /max|g| {[f'{x:.2e}' for x in repeat_rel]}; live out-blocks "
+          f"{int(live.sum())} of {live.numel()}; plain {plain_ms:.1f} ms; {stats}")
+    ok = (max(rel + rel_f) <= GRAD_TOL and max(l2 + l2_f) <= L2_TOL
+          and bool(torch.isfinite(gk).all()) and not bool(gk[..., comp.N_GRAD:].any())
+          and blocks_repeat == 0.0)
+    if not ok:
+        raise AssertionError(f"[{label}] unfused backward disagrees with the plain version, "
+                             f"the fused backward, or itself")
+    return dict(args=args, err=err, rel=max(rel), l2=max(l2), repeat=repeat,
+                blocks_repeat=blocks_repeat, plain_ms=plain_ms, stats=stats)
 
 
 def time_cuda(fn, iters, warmup=1):
@@ -297,10 +422,44 @@ def phase_bwd_check(check, seed):
     return dict(inp=check["inp"], **compare_bwd_plain(check["inp"], "bench scene, 1 view", seed + 2))
 
 
-def request_data(gen, near=0.1, far=10.0):
-    """One request: N_CTX seeded panoramas with poses, N_TGT target poses."""
+@phase("2c. unfused forward kernel vs plain and vs the fused kernel, 3-view flagship shapes")
+def phase_unfused_check(seed):
+    from splatter360_tpu_torch.ops.cuda.composite import use_fused
+
+    means, covs, sh, opac = bench_scene(seed, N_CTX3 * H * W)
+    if use_fused(means.shape[0]):
+        raise AssertionError(f"N={means.shape[0]} should be past the fused budget")
+    inp = with_inst(render_inputs(means, covs, sh, opac, [torch.eye(4, device="cuda")], 0.1))
+    print(f"N={means.shape[0]} K={inp['gidx'].shape[1]} dropped={inp['dropped']}")
+    err, stats = compare_kernel_plain(inp, "3-view bench scene, 1 view, unfused", unfused=True)
+    fused_vs_unfused = max_fused_difference(inp, "3-view bench scene, 1 view")
+    return dict(inp=inp, err=err, stats=stats, fused_vs_unfused=fused_vs_unfused)
+
+
+def max_fused_difference(inp, label):
+    """The unfused forward kernel against the fused one on the same
+    instances: both walk each pixel's instances in order with -fmad=false,
+    so they must agree bit for bit."""
+    unfused = fwd_calls(inp, unfused=True)[0]()
+    fused = fwd_calls(inp)[0]()
+    diff = float((unfused - fused).abs().max())
+    print(f"[{label}] unfused vs fused forward kernel: max difference {diff:.3e}, "
+          f"bit-equal {torch.equal(unfused, fused)}")
+    if not torch.equal(unfused, fused):
+        raise AssertionError(f"[{label}] the unfused and fused forward kernels differ")
+    return diff
+
+
+@phase("2d. unfused backward (kernel, map, scatter) vs plain and vs the fused backward")
+def phase_unfused_bwd_check(check, seed):
+    return dict(inp=check["inp"], **compare_unfused_bwd_plain(
+        check["inp"], "3-view bench scene, 1 view", seed + 2))
+
+
+def request_data(gen, near=0.1, far=10.0, n_ctx=N_CTX):
+    """One request: n_ctx seeded panoramas with poses, N_TGT target poses."""
     dev = torch.device("cuda")
-    img = torch.rand((1, N_CTX, H // 8, W // 8, 3), generator=gen, device=dev)
+    img = torch.rand((1, n_ctx, H // 8, W // 8, 3), generator=gen, device=dev)
     img = torch.nn.functional.interpolate(
         img[0].permute(0, 3, 1, 2), size=(H, W), mode="bilinear", align_corners=False
     ).permute(0, 2, 3, 1)[None].contiguous()
@@ -311,28 +470,42 @@ def request_data(gen, near=0.1, far=10.0):
         return p
 
     return dict(
-        image=img, ctx_pose=poses(N_CTX, 0.3), tgt_pose=poses(N_TGT, 0.2),
-        near=torch.full((1, N_CTX), near, device=dev), far=torch.full((1, N_CTX), far, device=dev),
+        image=img, ctx_pose=poses(n_ctx, 0.3), tgt_pose=poses(N_TGT, 0.2),
+        near=torch.full((1, n_ctx), near, device=dev), far=torch.full((1, n_ctx), far, device=dev),
         tgt_near=torch.full((1, N_TGT), near, device=dev), tgt_far=torch.full((1, N_TGT), far, device=dev),
     )
 
 
-@phase("3. serve HM3D-width requests")
-def phase_serve(seed):
+def path_kernels(n):
+    """The forward and backward kernel names N Gaussians take."""
+    from splatter360_tpu_torch.ops.cuda import composite as comp
+
+    if comp.use_fused(n):
+        return comp.KERNEL_NAME, comp.BWD_KERNEL_NAME
+    return comp.UNFUSED_KERNEL_NAME, comp.UNFUSED_BWD_KERNEL_NAME
+
+
+def serve_requests(seed, n_ctx):
+    """N_REQUESTS requests of n_ctx context panoramas through the serving
+    entry points; each must launch exactly one forward kernel, of the path
+    its N takes. Returns the launch counts over the run and the last
+    request's Gaussians and target poses."""
     from splatter360_tpu_torch.models.encoder import HM3D
     from splatter360_tpu_torch.ops.cuda import composite as comp
     from splatter360_tpu_torch.serve import build_model, encode, render_erp_views
 
+    fwd_name, _ = path_kernels(n_ctx * H * W)
     model = build_model(HM3D, seed=seed, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(seed + 1)
-    reqs = [request_data(gen) for _ in range(N_REQUESTS)]
+    reqs = [request_data(gen, n_ctx=n_ctx) for _ in range(N_REQUESTS)]
     torch.cuda.synchronize()
 
     for k in comp.launch_counts:
         comp.launch_counts[k] = 0
     gaussians = out = None
+    times = []
     for i, r in enumerate(reqs):
-        before = comp.launch_counts[comp.KERNEL_NAME]
+        before = dict(comp.launch_counts)
         t0 = time.perf_counter()
         gaussians, depth_map = encode(model, r["image"], r["ctx_pose"], r["near"], r["far"])
         torch.cuda.synchronize()
@@ -341,28 +514,47 @@ def phase_serve(seed):
                                (H, W), render_depth=True)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
-        delta = comp.launch_counts[comp.KERNEL_NAME] - before
+        delta = {k: comp.launch_counts[k] - before[k] for k in before}
         n = gaussians.means.shape[1]
-        print(f"request {i}: encoder {1e3 * (t1 - t0):.1f} ms, render {N_TGT} views "
-              f"{1e3 * (t2 - t1):.1f} ms, N={n}, dropped={out.dropped.tolist()}, "
-              f"kernel launches +{delta}")
-        if n != N_CTX * H * W:
-            raise AssertionError(f"expected {N_CTX * H * W} Gaussians, got {n}")
-        if delta != 1:
-            raise AssertionError(f"expected 1 compositor launch for {N_TGT} views, got {delta}")
+        times.append((1e3 * (t1 - t0), 1e3 * (t2 - t1)))
+        print(f"request {i}: {n_ctx} context panoramas, encoder {times[-1][0]:.1f} ms, render "
+              f"{N_TGT} views {times[-1][1]:.1f} ms, N={n}, dropped={out.dropped.tolist()}, "
+              f"kernel launches {delta}")
+        if n != n_ctx * H * W:
+            raise AssertionError(f"expected {n_ctx * H * W} Gaussians, got {n}")
+        if delta != {k: int(k == fwd_name) for k in delta}:
+            raise AssertionError(f"expected 1 {fwd_name} launch for {N_TGT} views, got {delta}")
         check_outputs(gaussians, depth_map, out, r)
     launches = dict(comp.launch_counts)
     print(f"launch counts over the serving run: {launches}")
+    return dict(launches=launches, gaussians=gaussians, tgt_pose=reqs[-1]["tgt_pose"][0],
+                times=times)
 
+
+def target_inputs(gaussians, tgt_pose):
+    """render_inputs of one item's Gaussians into its target views."""
+    return render_inputs(gaussians.means[0], gaussians.covariances[0], gaussians.harmonics[0],
+                         gaussians.opacities[0], list(tgt_pose), 0.1)
+
+
+@phase("3. serve HM3D-width requests")
+def phase_serve(seed):
+    res = serve_requests(seed, N_CTX)
     # the encoder's own Gaussians through the kernel and the plain version
-    r = reqs[-1]
-    inp = render_inputs(gaussians.means[0], gaussians.covariances[0], gaussians.harmonics[0],
-                        gaussians.opacities[0], list(r["tgt_pose"][0]), 0.1)
+    inp = target_inputs(res["gaussians"], res["tgt_pose"])
     one = {k: (v[:1] if torch.is_tensor(v) and v.dim() > 1 else v) for k, v in inp.items()}
     err1, _ = compare_kernel_plain(one, "encoder Gaussians, view 0")
     err4, stats = compare_kernel_plain(inp, f"encoder Gaussians, {N_TGT} views")
-    return dict(inp=inp, err=max(err1, err4), stats=stats, launches=launches, gaussians=gaussians,
-                tgt_pose=r["tgt_pose"][0])
+    return dict(res, inp=inp, err=max(err1, err4), stats=stats)
+
+
+@phase("3e. serve HM3D-width requests with 3 context panoramas (unfused path)")
+def phase_serve3(seed):
+    res = serve_requests(seed, N_CTX3)
+    inp = with_inst(target_inputs(res["gaussians"], res["tgt_pose"]))
+    err, stats = compare_kernel_plain(inp, f"3-view encoder Gaussians, {N_TGT} views, unfused",
+                                      unfused=True)
+    return dict(res, inp=inp, err=err, stats=stats)
 
 
 def render_breakdown(gaussians, c2ws, iters=3):
@@ -405,7 +597,7 @@ def check_outputs(gaussians, depth_map, out, r):
         if not bool(torch.isfinite(x).all()):
             raise AssertionError(f"non-finite {name}")
     assert tuple(out.color.shape) == (1, N_TGT, H, W, 3), out.color.shape
-    assert tuple(depth_map.shape) == (1, N_CTX, H, W), depth_map.shape
+    assert tuple(depth_map.shape) == (1, r["image"].shape[1], H, W), depth_map.shape
     assert float(depth_map.min()) >= near - 1e-5 and float(depth_map.max()) <= far + 1e-4
     assert float(out.alpha.min()) >= -1e-6 and float(out.alpha.max()) <= 1.0 + 1e-6
 
@@ -475,16 +667,16 @@ def phase_small_reference(seed):
             raise AssertionError(f"chain {name}: GPU serving path differs from the CPU path")
 
 
-def train_batch(gen, near=0.1, far=10.0):
+def train_batch(gen, near=0.1, far=10.0, n_ctx=N_CTX):
     """One train batch: request_data's context panoramas and poses, target
     panoramas made the same way, and context depth in [0.5, 5] with ~8%
     holes (0), all seeded."""
-    r = request_data(gen, near, far)
+    r = request_data(gen, near, far, n_ctx)
     tgt = torch.rand((N_TGT, H // 8, W // 8, 3), generator=gen, device="cuda")
     tgt = torch.nn.functional.interpolate(tgt.permute(0, 3, 1, 2), size=(H, W), mode="bilinear",
                                           align_corners=False).permute(0, 2, 3, 1)[None]
-    depth = 0.5 + 4.5 * torch.rand((1, N_CTX, H, W), generator=gen, device="cuda")
-    holes = torch.rand((1, N_CTX, H // 16, W // 16), generator=gen, device="cuda") < 0.08
+    depth = 0.5 + 4.5 * torch.rand((1, n_ctx, H, W), generator=gen, device="cuda")
+    holes = torch.rand((1, n_ctx, H // 16, W // 16), generator=gen, device="cuda") < 0.08
     holes = holes.repeat_interleave(16, dim=2).repeat_interleave(16, dim=3)
     return dict(
         context=dict(image_sphere=r["image"], extrinsics_sphere=r["ctx_pose"],
@@ -498,32 +690,46 @@ def train_batch(gen, near=0.1, far=10.0):
 STAGES = ("encoder", "render", "losses", "backward", "optimizer")
 
 
-@phase("3c. HM3D-width train steps")
-def phase_train(seed):
+def train_steps(seed, n_ctx):
+    """N_STEPS HM3D-width train steps with n_ctx context panoramas: per-step
+    metrics, CUDA-event stage times (and the backward kernel's, and on the
+    unfused path the scatter's, inside the backward), kernel calls (exactly
+    one forward and one backward of the path N takes) and peak memory; then
+    the backward kernel against its plain version on the last step's
+    Gaussians rendered into its N_TGT target views."""
     from splatter360_tpu_torch.models.encoder import HM3D
     from splatter360_tpu_torch.models.types import Gaussians
     from splatter360_tpu_torch.ops.cuda import composite as comp
     from splatter360_tpu_torch.serve import context_cubes
     from splatter360_tpu_torch.train.state import TrainConfig, create_train_state, train_step
 
+    fwd_name, bwd_name = path_kernels(n_ctx * H * W)
+    unfused = fwd_name == comp.UNFUSED_KERNEL_NAME
     state = create_train_state(HM3D, TrainConfig(), seed=seed, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(seed + 3)
-    batches = [train_batch(gen) for _ in range(N_STEPS)]
+    batches = [train_batch(gen, n_ctx=n_ctx) for _ in range(N_STEPS)]
     torch.cuda.synchronize()
 
-    # CUDA events around the backward kernel's calls inside each step
-    kernel_events = []
-    orig_bwd = comp.composite_backward
+    # CUDA events around the backward kernel's calls (and the scatter's)
+    # inside each step
+    kernel_events = {"backward kernel": [], "scatter": []}
+    timed = {"backward kernel": "composite_backward_unfused" if unfused else "composite_backward"}
+    if unfused:
+        timed["scatter"] = "scatter_out_blocks"
+    originals = {label: getattr(comp, name) for label, name in timed.items()}
 
-    def timed_bwd(*a, **kw):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-        ev[0].record()
-        out = orig_bwd(*a, **kw)
-        ev[1].record()
-        kernel_events.append(ev)
-        return out
+    def timing(label, fn):
+        def run(*a, **kw):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = fn(*a, **kw)
+            ev[1].record()
+            kernel_events[label].append(ev)
+            return out
+        return run
 
-    comp.composite_backward = timed_bwd
+    for label, name in timed.items():
+        setattr(comp, name, timing(label, originals[label]))
     for k in comp.launch_counts:
         comp.launch_counts[k] = 0
     steps = []
@@ -531,7 +737,8 @@ def phase_train(seed):
         for i, batch in enumerate(batches):
             before = {n: p.detach().clone() for n, p in state.model.named_parameters()}
             calls = dict(comp.launch_counts)
-            kernel_events.clear()
+            for evs in kernel_events.values():
+                evs.clear()
             torch.cuda.reset_peak_memory_stats()
             events = {"start": torch.cuda.Event(enable_timing=True)}
 
@@ -548,17 +755,19 @@ def phase_train(seed):
             for stage in STAGES:
                 ms[stage] = events[prev].elapsed_time(events[stage])
                 prev = stage
-            ms["backward kernel"] = sum(a.elapsed_time(b) for a, b in kernel_events)
+            for label in timed:
+                ms[label] = sum(a.elapsed_time(b) for a, b in kernel_events[label])
             delta = {k: comp.launch_counts[k] - calls[k] for k in calls}
             vals = {k: float(v) for k, v in metrics.items()}
             peak = torch.cuda.max_memory_allocated() / 2**30
-            print(f"step {i}: " + ", ".join(f"{k} {v:.6g}" for k, v in sorted(vals.items()))
+            print(f"step {i} ({n_ctx} context panoramas): "
+                  + ", ".join(f"{k} {v:.6g}" for k, v in sorted(vals.items()))
                   + f"; {wall:.1f} ms: " + ", ".join(f"{k} {v:.1f}" for k, v in ms.items())
                   + f"; kernel calls {delta}; peak memory {peak:.2f} GiB", flush=True)
             if not all(math.isfinite(v) for v in vals.values()):
                 raise AssertionError(f"step {i}: non-finite metrics {vals}")
-            if delta[comp.KERNEL_NAME] != 1 or delta[comp.BWD_KERNEL_NAME] != 1:
-                raise AssertionError(f"step {i}: expected 1 forward and 1 backward kernel call, "
+            if delta != {k: int(k in (fwd_name, bwd_name)) for k in delta}:
+                raise AssertionError(f"step {i}: expected 1 {fwd_name} and 1 {bwd_name} call, "
                                      f"got {delta}")
             still = [n for n, p in state.model.named_parameters() if torch.equal(p, before[n])]
             if still:
@@ -567,27 +776,48 @@ def phase_train(seed):
                 raise AssertionError(f"step {i}: non-finite parameters")
             steps.append(dict(wall=wall, ms=ms, peak_gib=peak, **vals))
     finally:
-        comp.composite_backward = orig_bwd
+        for label, name in timed.items():
+            setattr(comp, name, originals[label])
     launches = dict(comp.launch_counts)
     print(f"launch counts over the training run: {launches}")
 
-    # the last step's Gaussians, rendered into its 4 target views: backward
+    # the last step's Gaussians, rendered into its target views: backward
     # kernel vs plain at the training shapes
     ctx, tgt = batches[-1]["context"], batches[-1]["target"]
     with torch.no_grad():
         g, _ = state.model(ctx["image_sphere"], context_cubes(ctx["image_sphere"], H // 2),
                            ctx["extrinsics_sphere"], ctx["near"], ctx["far"], state.step)
+    del state
     g = Gaussians(*(x[0] for x in g))
     inp = render_inputs(g.means, g.covariances, g.harmonics, g.opacities,
                         list(tgt["extrinsics_sphere"][0]), 0.1)
-    res = compare_bwd_plain(inp, f"train-step Gaussians, {N_TGT} views", seed + 4)
+    label = f"train-step Gaussians ({n_ctx} context panoramas), {N_TGT} views"
+    if unfused:
+        inp = with_inst(inp)
+        res = compare_unfused_bwd_plain(inp, label, seed + 4)
+    else:
+        res = compare_bwd_plain(inp, label, seed + 4)
     return dict(steps=steps, launches=launches, inp=inp, **res)
 
 
-@phase("3d. GPU train step vs CPU train step, small input")
-def phase_small_train(seed):
+@phase("3c. HM3D-width train steps")
+def phase_train(seed):
+    return train_steps(seed, N_CTX)
+
+
+@phase("3f. HM3D-width train steps with 3 context panoramas (unfused path)")
+def phase_train3(seed):
+    torch.cuda.empty_cache()
+    return train_steps(seed, N_CTX3)
+
+
+def small_train(seed, n_ctx):
+    """A GPU and a CPU train step at 64x256 with n_ctx context panoramas
+    from the same seeded weights and batch: the loss at 1e-3 relative, each
+    leaf's gradient within GRAD_TOL of the global max|g|."""
     from splatter360_tpu_torch.models.adapter import GaussianAdapterConfig
     from splatter360_tpu_torch.models.encoder import EncoderConfig
+    from splatter360_tpu_torch.ops.cuda import composite as comp
     from splatter360_tpu_torch.train.state import TrainConfig, create_train_state, train_step
 
     cfg = EncoderConfig(
@@ -598,8 +828,9 @@ def phase_small_train(seed):
     )
     rng = np.random.default_rng(seed)
     h, w = 64, 256
+    fwd_name, bwd_name = path_kernels(n_ctx * h * w)
     batch = {}
-    for part, v in (("context", 2), ("target", 2)):
+    for part, v in (("context", n_ctx), ("target", 2)):
         pose = np.tile(np.eye(4, dtype=np.float32), (1, v, 1, 1))
         pose[..., :3, 3] = rng.normal(0, 0.2, (1, v, 3))
         depth = rng.uniform(0.5, 5.0, (1, v, h, w))
@@ -616,11 +847,16 @@ def phase_small_train(seed):
                 grads.update({k: p.grad.detach().cpu().clone()
                               for k, p in state.model.named_parameters()})
 
+        calls = dict(comp.launch_counts)
         metrics = train_step(state, batch, on_stage=keep)
+        delta = {k: comp.launch_counts[k] - calls[k] for k in calls}
+        if dev == "cuda" and delta != {k: int(k in (fwd_name, bwd_name)) for k in delta}:
+            raise AssertionError(f"GPU step: expected 1 {fwd_name} and 1 {bwd_name} call, "
+                                 f"got {delta}")
         out[dev] = ({k: float(v) for k, v in metrics.items()}, grads)
     (m_cpu, g_cpu), (m_gpu, g_gpu) = out["cpu"], out["cuda"]
-    print("  metrics cpu / gpu: " + ", ".join(f"{k} {m_cpu[k]:.6g} / {m_gpu[k]:.6g}"
-                                              for k in sorted(m_cpu)))
+    print(f"  {n_ctx} context panoramas, kernels {fwd_name}, {bwd_name}; metrics cpu / gpu: "
+          + ", ".join(f"{k} {m_cpu[k]:.6g} / {m_gpu[k]:.6g}" for k in sorted(m_cpu)))
     scale = max(float(g.abs().max()) for g in g_cpu.values())
     worst = max((float((g_gpu[k] - g).abs().max()) / scale, k) for k, g in g_cpu.items())
     rel_loss = abs(m_gpu["loss"] - m_cpu["loss"]) / abs(m_cpu["loss"])
@@ -633,35 +869,81 @@ def phase_small_train(seed):
         raise AssertionError("GPU train step differs from the CPU one")
 
 
+@phase("3d. GPU train step vs CPU train step, small input")
+def phase_small_train(seed):
+    small_train(seed, N_CTX)
+
+
+@phase("3g. GPU train step vs CPU train step, small input, 3 context panoramas (unfused path)")
+def phase_small_train3(seed):
+    from splatter360_tpu_torch.ops.cuda import composite as comp
+
+    # the fused budget at this scale: 2 context panoramas of 64x256 fused, 3 unfused
+    budget = comp.FUSED_TABLE_BUDGET
+    comp.FUSED_TABLE_BUDGET = comp.fused_table_bytes(N_CTX3 * 64 * 256) - 1
+    try:
+        small_train(seed, N_CTX3)
+    finally:
+        comp.FUSED_TABLE_BUDGET = budget
+
+
 @phase("4. timing")
-def phase_timing(check, serve, bcheck, train):
-    from splatter360_tpu_torch.ops.cuda.composite import (
-        composite_backward, composite_forward, composite_forward_plain)
+def phase_timing(check, serve, bcheck, train, ucheck, ubcheck, serve3, train3):
+    from splatter360_tpu_torch.ops.cuda import composite as comp
 
     rows = {}
-    for label, res in (("flagship 1 view", check), ("serving 4 views", serve)):
+    for label, res, unfused in (("flagship 1 view", check, False),
+                                ("serving 4 views", serve, False),
+                                ("unfused 3-view flagship 1 view", ucheck, True),
+                                ("unfused serving 4 views", serve3, True)):
         if res is None:
             continue
         inp = res["inp"]
-        args = (inp["attrs"], inp["gidx"], inp["starts"], inp["counts"],
-                inp["nty"], inp["ntx"], float(W), True)
-        ms = time_cuda(lambda: composite_forward(*args), iters=20)
-        plain_ms = time_cuda(lambda: composite_forward_plain(*args), iters=1, warmup=0)
-        b_ms, b_by, ops_ms, bytes_ms = bound_ms(inp, res["stats"])
+        ms = time_cuda(fwd_calls(inp, unfused)[0], iters=20)
+        plain_ms = res["stats"]["plain_ms"]
+        b_ms, b_by, ops_ms, bytes_ms = bound_ms(inp, res["stats"], unfused)
         print(f"[{label}] kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, bound {b_ms:.4f} ms "
               f"set by {b_by} (operations {ops_ms:.4f} ms, bytes {bytes_ms:.4f} ms), "
               f"blocks {res['stats']['blocks_processed']}, "
               f"gated pairs {res['stats']['pairs_alive']}")
         rows[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
-    for label, res in (("backward flagship 1 view", bcheck), ("backward train 4 views", train)):
+        if unfused:
+            # what the JAX threshold costs here: the fused kernel on the same
+            # Gaussians, against the unfused path's pack + kernel
+            pack_ms = time_cuda(lambda: comp.pack_instances(
+                inp["attrs"], inp["gidx"], inp["tile_ids"], inp["nty"] * inp["ntx"]), iters=10)
+            fused_ms = time_cuda(fwd_calls(inp)[0], iters=20)
+            print(f"[{label}] pack_instances {pack_ms:.3f} ms; unfused path (pack + kernel) "
+                  f"{pack_ms + ms:.3f} ms; the fused kernel on the same inputs {fused_ms:.3f} ms")
+            rows[label].update(pack_ms=pack_ms, fused_ms=fused_ms)
+    for label, res, unfused in (("backward flagship 1 view", bcheck, False),
+                                ("backward train 4 views", train, False),
+                                ("unfused backward 3-view flagship 1 view", ubcheck, True),
+                                ("unfused backward train 4 views", train3, True)):
         if res is None:
             continue
-        ms = time_cuda(lambda: composite_backward(*res["args"]), iters=10)
-        b_ms, b_by, ops_ms, bytes_ms = bwd_bound_ms(res["inp"], res["stats"])
+        args, inp = res["args"], res["inp"]
+        backward = comp.composite_backward_unfused if unfused else comp.composite_backward
+        ms = time_cuda(lambda: backward(*args), iters=10)
+        b_ms, b_by, ops_ms, bytes_ms = bwd_bound_ms(inp, res["stats"], unfused)
         print(f"[{label}] kernel {ms:.3f} ms, plain {res['plain_ms']:.1f} ms, bound {b_ms:.4f} ms "
               f"set by {b_by} (operations {ops_ms:.4f} ms, bytes {bytes_ms:.4f} ms), "
               f"{res['stats']}")
         rows[label] = dict(ms=ms, plain_ms=res["plain_ms"], bound_ms=b_ms, bound_by=b_by)
+        if unfused:
+            # the scatter apart, and the fused backward kernel on the same
+            # inputs (what the JAX threshold costs here)
+            dout = comp.composite_backward_unfused(*args)
+            inst, starts, counts, g_planes, lt, nproc = args[:6]
+            n = inp["attrs"].shape[1]
+            scatter_ms = time_cuda(lambda: comp.scatter_out_blocks(
+                dout, inp["gidx"], starts, counts, nproc, n), iters=10)
+            fused_ms = time_cuda(lambda: comp.composite_backward(
+                inp["attrs"], inp["gidx"], starts, counts, *args[3:]), iters=10)
+            print(f"[{label}] scatter_out_blocks {scatter_ms:.3f} ms; unfused path (kernel + "
+                  f"scatter) {ms + scatter_ms:.3f} ms; the fused backward kernel on the same "
+                  f"inputs {fused_ms:.3f} ms")
+            rows[label].update(scatter_ms=scatter_ms, fused_ms=fused_ms)
     if serve is not None:
         parts = render_breakdown(serve["gaussians"], list(serve["tgt_pose"]))
         print(f"[render breakdown, {N_TGT} views] " +
@@ -681,44 +963,51 @@ def main():
     smi = smi_line()
     print(f"card: {smi}", flush=True)
     phase_build()
-    check = phase_kernel_check(args.seed) if not failures else None
+    built = not failures
+    check = phase_kernel_check(args.seed) if built else None
     bcheck = phase_bwd_check(check, args.seed) if check is not None else None
+    ucheck = phase_unfused_check(args.seed) if built else None
+    ubcheck = phase_unfused_bwd_check(ucheck, args.seed) if ucheck is not None else None
     serve = phase_serve(args.seed)
     phase_small_reference(args.seed)
     train = phase_train(args.seed)
     phase_small_train(args.seed)
-    rows = phase_timing(check, serve, bcheck, train) or {}
-    if serve is None:
-        failures.append("serving run missing")
-    elif serve["launches"].get("composite_forward_fused", 0) == 0:
-        failures.append("compositor kernel never launched on the serving path")
-    if train is None:
-        failures.append("training run missing")
-    elif min(train["launches"].get(k, 0) for k in ("composite_forward_fused",
-                                                   "composite_backward_fused")) == 0:
-        failures.append("a compositor kernel never launched on the training path")
+    serve3 = phase_serve3(args.seed)
+    train3 = phase_train3(args.seed)
+    phase_small_train3(args.seed)
+    rows = phase_timing(check, serve, bcheck, train, ucheck, ubcheck, serve3, train3) or {}
+    # each path's own kernels, counted over its own run
+    for label, res, names in (
+            ("serving", serve, ("composite_forward_fused",)),
+            ("training", train, ("composite_forward_fused", "composite_backward_fused")),
+            ("3-view serving", serve3, ("composite_forward_unfused",)),
+            ("3-view training", train3, ("composite_forward_unfused",
+                                         "composite_backward_unfused"))):
+        if res is None:
+            failures.append(f"{label} run missing")
+        elif min(res["launches"].get(k, 0) for k in names) == 0:
+            failures.append(f"a kernel of {names} never launched on the {label} path")
     if failures:
         print(f"chip_smoke FAILED: {failures}", file=sys.stderr)
         sys.exit(1)
 
-    fwd, bwd = rows["serving 4 views"], rows["backward train 4 views"]
-    kernels = [dict(
-        name="composite_forward_fused", route="cuda",
-        source="splatter360_tpu_torch/csrc/composite_fwd.cu",
-        replaces="splatter360_tpu/ops/pallas/composite.py:370",
-        launches=serve["launches"]["composite_forward_fused"],
-        max_abs_err=max(check["err"], serve["err"]),
-        ms=fwd["ms"], plain_ms=fwd["plain_ms"], bound_ms=fwd["bound_ms"],
-        bound_by=fwd["bound_by"], library_ms=None,
-    ), dict(
-        name="composite_backward_fused", route="cuda",
-        source="splatter360_tpu_torch/csrc/composite_bwd.cu",
-        replaces="splatter360_tpu/ops/pallas/composite.py:517",
-        launches=train["launches"]["composite_backward_fused"],
-        max_abs_err=max(bcheck["err"], train["err"]),
-        ms=bwd["ms"], plain_ms=bwd["plain_ms"], bound_ms=bwd["bound_ms"],
-        bound_by=bwd["bound_by"], library_ms=None,
-    )]
+    def row(name, source, replaces, res, err, timing):
+        return dict(name=name, route="cuda", source=f"splatter360_tpu_torch/csrc/{source}",
+                    replaces=f"splatter360_tpu/ops/pallas/composite.py:{replaces}",
+                    launches=res["launches"][name], max_abs_err=err, ms=timing["ms"],
+                    plain_ms=timing["plain_ms"], bound_ms=timing["bound_ms"],
+                    bound_by=timing["bound_by"], library_ms=None)
+
+    kernels = [
+        row("composite_forward_fused", "composite_fwd.cu", 370, serve,
+            max(check["err"], serve["err"]), rows["serving 4 views"]),
+        row("composite_backward_fused", "composite_bwd.cu", 517, train,
+            max(bcheck["err"], train["err"]), rows["backward train 4 views"]),
+        row("composite_forward_unfused", "composite_fwd_unfused.cu", 289, serve3,
+            max(ucheck["err"], serve3["err"]), rows["unfused serving 4 views"]),
+        row("composite_backward_unfused", "composite_bwd_unfused.cu", 705, train3,
+            max(ubcheck["err"], train3["err"]), rows["unfused backward train 4 views"]),
+    ]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

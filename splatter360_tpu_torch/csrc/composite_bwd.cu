@@ -1,321 +1,21 @@
 // Fused backward tile compositor for Hopper (sm_90a).
 //
 // Replaces the TPU kernel `_backward_kernel_fused`
-// (splatter360_tpu/ops/pallas/composite.py:517). For every (view, 16x128
-// tile) it walks the blocks of 128 instances that the forward processed
-// (n_processed of them, from the forward's plane 6), last block first, and
-// accumulates d loss / d attrs for rows u v a b c o r g b depth (rows 10-15,
-// rx ry and padding, get none) into g_attrs[V, N, 16]. Per block:
-//   1. recompute alpha for every (pixel, instance) pair exactly as the forward
-//      does (seam re-centring of u included);
-//   2. sum_lg = per-pixel sum of log1p(-alpha) over the block, in lane order;
-//   3. telescope: log_t_end = logT_final - suffix, log_t_start = log_t_end -
-//      sum_lg, suffix += sum_lg (for every walked block);
-//   4. only if some pixel of the tile has log_t_start >= log(1e-4), walk the
-//      lanes back to front with R = inclusive suffix of log1p(-alpha):
-//        T = exp(log_t_end - R)  (= exp(log_t_start + exclusive prefix)),
-//        contrib = T (1 - alpha) >= 1e-4, w = contrib ? alpha T : 0,
-//        gamma = <g_rgbd, colour/depth>, psi = w gamma,
-//        g_alpha = contrib ? T gamma - (S + a_psi + gT T_final) / (1 - alpha) : 0
-//      with S the strict in-block suffix of psi, then a_psi += sum of psi;
-//   5. per instance, sum over the tile's pixels g_p = g_alpha alpha, g_p dx,
-//      g_p dy, g_p dx^2, g_p dy^2, g_p dx dy and w g_rgbd, and form
-//        g_u = a S_dx + b S_dy, g_v = c S_dy + b S_dx, g_a = -S_dxdx / 2,
-//        g_b = -S_dxdy, g_c = -S_dydy / 2, g_o = S_1 / max(o, 1e-12),
-//        g_{r,g,b,depth} = sum of w g_rgbd.
-// As in the Pallas kernel, d alpha / d power = alpha and d alpha / d o =
-// alpha / o even where alpha was capped at 0.99.
+// (splatter360_tpu/ops/pallas/composite.py:517). The kernel is
+// composite_bwd.cuh's with TILE_OWNED = false: it re-gathers each walked
+// instance's row from attrs[N, 16] through gidx and adds each instance's
+// gradient into g_attrs[V, N, 16] with atomics, so the last bits of g_attrs
+// vary from run to run (the Pallas kernel's sequential grid is
+// deterministic).
 //
 // What bounds it on an H100, counting only what its inputs need: FP32
 // operations (one alpha chain and the gradient terms, ~59 ops per gated
-// pair; this design's second alpha recompute is not counted) or bytes (the gathered attribute rows, the cotangent planes and one
-// 40-byte gradient per instance and tile). Neither limits it today: one
-// thread block owns a tile and walks its blocks in order, so the heaviest tile
-// sets the time, as it did for the forward's first version. The design:
-// - one 512-thread block per (view, tile); warp w owns the 32x4-pixel region
-//   w of the tile (the forward's regions), each thread one column of 4
-//   pixels with their state (suffix, a_psi, logT_final, cotangents) in
-//   registers;
-// - per block, threads 0-127 gather one instance's row each into shared
-//   memory and mark the regions its radius box, widened by a pixel, touches;
-//   each warp walks only its marked instances (one ballot per 32 lanes). A
-//   pair outside the box has alpha = 0 and adds exactly 0 to every sum, so
-//   skipping it changes nothing;
-// - the tile-wide gate of step 4 is one __syncthreads_or;
-// - step 5 is a warp shuffle reduction per (warp, instance), a shared-memory
-//   atomicAdd across the 16 warps, then one global atomicAdd per (instance,
-//   row). Float atomics make the summation order, and so the last bits of
-//   g_attrs, vary from run to run (the Pallas kernel's sequential grid is
-//   deterministic). The plain PyTorch version sums log1p(-alpha) in this
-//   kernel's lane order (with -fmad=false both round alike), so the gate of
-//   step 4 decides alike; its back-to-front walk is taken as suffix sums,
-//   which round differently, as do its sums over pixels and tiles.
+// pair; this design's second alpha recompute is not counted) or bytes (the
+// gathered attribute rows, the cotangent planes and one 40-byte gradient per
+// instance and tile). Neither limits it today: one thread block owns a tile
+// and walks its blocks in order, so the heaviest tile sets the time.
 
-#include <cuda_runtime.h>
-
-namespace {
-
-constexpr int TILE_H = 16;
-constexpr int TILE_W = 128;
-constexpr int N_PIX = TILE_H * TILE_W;
-constexpr int CHUNK = 128;
-constexpr int ROWS = 16;
-constexpr int N_GRAD = 10;                    // rows u v a b c o r g b depth
-constexpr int SUB_W = 32;                     // a region: one warp wide
-constexpr int SUB_H = 4;                      // and four rows, one column a thread
-constexpr int SUB_X = TILE_W / SUB_W;
-constexpr int N_SUB = SUB_X * (TILE_H / SUB_H);
-constexpr int THREADS = 32 * N_SUB;           // one warp per region
-constexpr unsigned FULL = 0xffffffffu;
-constexpr float NEG_CUTOFF = -4.5f;
-constexpr float ALPHA_MIN = 1.0f / 255.0f;
-constexpr float T_EPS = 1e-4f;
-constexpr float LOG_T_EPS = -9.21034f;
-
-static_assert(N_SUB <= 32, "one mask bit per region");
-static_assert(THREADS >= CHUNK, "threads 0-127 gather one instance each");
-
-// Bit w set when region w of the tile may hold a pixel with |px - u| <= rx
-// and |py - v| <= ry, for a centre (du, dv) relative to the tile's corner.
-// The box is widened by a pixel, far beyond the rounding of px - u; NaNs give
-// 0, as they fail the per-pixel test too.
-__device__ unsigned region_bits(float du, float dv, float rx, float ry) {
-  const float c0 = du - rx - 1.0f, c1 = du + rx + 1.0f;
-  const float r0 = dv - ry - 1.0f, r1 = dv + ry + 1.0f;
-  if (!(c1 >= 0.0f && c0 <= TILE_W - 1.0f && r1 >= 0.0f && r0 <= TILE_H - 1.0f)) {
-    return 0u;
-  }
-  const int xa = static_cast<int>(fmaxf(c0, 0.0f)) / SUB_W;
-  const int xb = static_cast<int>(fminf(c1, TILE_W - 1.0f)) / SUB_W;
-  const int ya = static_cast<int>(fmaxf(r0, 0.0f)) / SUB_H;
-  const int yb = static_cast<int>(fminf(r1, TILE_H - 1.0f)) / SUB_H;
-  const unsigned cols = (2u << xb) - (1u << xa);
-  unsigned m = 0u;
-  for (int y = ya; y <= yb; ++y) m |= cols << (y * SUB_X);
-  return m;
-}
-
-// The forward's alpha of instance l (staged in s) at pixel (px, py); 0 where
-// the gate drops the pair. dx, dy are returned for the moment sums.
-__device__ __forceinline__ float pair_alpha(const float (*s)[CHUNK + 1], int l, float px,
-                                            float py, float& dx, float& dy) {
-  dx = px - s[0][l];
-  dy = py - s[1][l];
-  if (!(fabsf(dx) <= s[10][l]) || !(fabsf(dy) <= s[11][l])) return 0.0f;
-  const float a = s[2][l];
-  const float b = s[3][l];
-  const float c = s[4][l];
-  const float power = -0.5f * (a * dx * dx + c * dy * dy) - b * dx * dy;
-  if (!(power > NEG_CUTOFF && power <= 0.0f)) return 0.0f;
-  const float alpha = s[5][l] * expf(power);
-  if (!(alpha >= ALPHA_MIN)) return 0.0f;
-  return fminf(alpha, 0.99f);
-}
-
-__global__ void __launch_bounds__(THREADS)
-composite_bwd_fused_kernel(const float4* __restrict__ attrs,
-                           const int* __restrict__ gidx,
-                           const int* __restrict__ starts,
-                           const int* __restrict__ counts,
-                           const float* __restrict__ g_planes,
-                           const float* __restrict__ lt_final,
-                           const int* __restrict__ nproc,
-                           float* __restrict__ g_attrs,
-                           int n, int k, int n_tiles, int ntx,
-                           float w_img, int wrap_x) {
-  __shared__ float s_attr[ROWS][CHUNK + 1];
-  __shared__ unsigned s_mask[CHUNK];
-  __shared__ float s_grad[N_GRAD][CHUNK + 1];
-
-  const int tile = blockIdx.x;
-  const int view = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int seg = view * n_tiles + tile;
-  const int n_walk = nproc[seg];
-  if (n_walk <= 0) return;  // uniform over the block
-  const int start = starts[seg];
-  const int count = counts[seg];
-  const int blk0 = start / CHUNK;
-
-  const float x0 = static_cast<float>((tile % ntx) * TILE_W);
-  const float y0 = static_cast<float>((tile / ntx) * TILE_H);
-  const float xc = x0 + TILE_W * 0.5f;
-  const int cx0 = (warp % SUB_X) * SUB_W;
-  const int ry0 = (warp / SUB_X) * SUB_H;
-  const float px = x0 + static_cast<float>(cx0 + lane);
-  const unsigned my_bit = 1u << warp;
-
-  // per-pixel state of rows ry0 .. ry0+3 in column cx0 + lane
-  float log_t_final[SUB_H], suffix[SUB_H], a_psi[SUB_H], gt_term[SUB_H], gc[SUB_H][4];
-  const float* gp = g_planes + static_cast<size_t>(seg) * 8 * N_PIX;
-  const float* lt = lt_final + static_cast<size_t>(seg) * N_PIX;
-#pragma unroll
-  for (int r = 0; r < SUB_H; ++r) {
-    const int p = (ry0 + r) * TILE_W + cx0 + lane;
-    log_t_final[r] = lt[p];
-#pragma unroll
-    for (int c = 0; c < 4; ++c) gc[r][c] = gp[c * N_PIX + p];
-    gt_term[r] = gp[4 * N_PIX + p] * expf(log_t_final[r]);
-    suffix[r] = 0.0f;
-    a_psi[r] = 0.0f;
-  }
-
-  const float4* attrs_v = attrs + static_cast<size_t>(view) * n * (ROWS / 4);
-  const int* gidx_v = gidx + static_cast<size_t>(view) * k;
-  float* g_attrs_v = g_attrs + static_cast<size_t>(view) * n * ROWS;
-
-  for (int j = n_walk - 1; j >= 0; --j) {
-    const int idx = (blk0 + j) * CHUNK + tid;
-    const int g = (tid < CHUNK && idx >= start && idx < start + count) ? gidx_v[idx] : -1;
-    __syncthreads();  // the previous block's shared-memory reads are done
-    if (tid < CHUNK) {
-      float4 row[ROWS / 4];
-#pragma unroll
-      for (int q = 0; q < ROWS / 4; ++q) {
-        row[q] = g >= 0 ? attrs_v[static_cast<size_t>(g) * (ROWS / 4) + q]
-                        : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      }
-      unsigned m = 0u;
-      if (g >= 0) {
-        if (wrap_x) {
-          // as the forward: rintf rounds half to even, as jnp.round
-          row[0].x = row[0].x + w_img * rintf((xc - row[0].x) / w_img);
-        }
-        m = region_bits(row[0].x - x0, row[0].y - y0, row[2].z, row[2].w);
-      }
-      s_mask[tid] = m;
-#pragma unroll
-      for (int q = 0; q < ROWS / 4; ++q) {
-        s_attr[4 * q + 0][tid] = row[q].x;
-        s_attr[4 * q + 1][tid] = row[q].y;
-        s_attr[4 * q + 2][tid] = row[q].z;
-        s_attr[4 * q + 3][tid] = row[q].w;
-      }
-#pragma unroll
-      for (int i = 0; i < N_GRAD; ++i) s_grad[i][tid] = 0.0f;
-    }
-    __syncthreads();
-
-    // steps 1-3: the block's per-pixel sum of log1p(-alpha), lanes in order
-    float sum_lg[SUB_H] = {0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll 1
-    for (int q = 0; q < CHUNK; q += 32) {
-      unsigned todo = __ballot_sync(FULL, (s_mask[q + lane] & my_bit) != 0u);
-      while (todo != 0u) {
-        const int l = q + __ffs(todo) - 1;
-        todo &= todo - 1u;
-#pragma unroll
-        for (int r = 0; r < SUB_H; ++r) {
-          float dx, dy;
-          const float alpha = pair_alpha(s_attr, l, px, y0 + static_cast<float>(ry0 + r), dx, dy);
-          if (alpha > 0.0f) sum_lg[r] = sum_lg[r] + log1pf(-alpha);
-        }
-      }
-    }
-    float log_t_end[SUB_H];
-    bool live = false;
-#pragma unroll
-    for (int r = 0; r < SUB_H; ++r) {
-      log_t_end[r] = log_t_final[r] - suffix[r];
-      const float log_t_start = log_t_end[r] - sum_lg[r];
-      suffix[r] = suffix[r] + sum_lg[r];
-      live = live || (log_t_start >= LOG_T_EPS);
-    }
-    // step 4's gate: the max over the tile's pixels of log_t_start
-    if (!__syncthreads_or(live)) continue;
-
-    // step 4: lanes back to front
-    float lg_suffix[SUB_H] = {0.0f, 0.0f, 0.0f, 0.0f};
-    float psi_suffix[SUB_H] = {0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll 1
-    for (int q = CHUNK - 32; q >= 0; q -= 32) {
-      unsigned todo = __ballot_sync(FULL, (s_mask[q + lane] & my_bit) != 0u);
-      while (todo != 0u) {
-        const int bit = 31 - __clz(todo);
-        todo &= ~(1u << bit);
-        const int l = q + bit;
-        const float cr = s_attr[6][l], cg = s_attr[7][l], cb = s_attr[8][l], cd = s_attr[9][l];
-        float acc[N_GRAD];
-#pragma unroll
-        for (int i = 0; i < N_GRAD; ++i) acc[i] = 0.0f;
-        bool any = false;
-#pragma unroll
-        for (int r = 0; r < SUB_H; ++r) {
-          float dx, dy;
-          const float alpha = pair_alpha(s_attr, l, px, y0 + static_cast<float>(ry0 + r), dx, dy);
-          if (!(alpha > 0.0f)) continue;
-          any = true;
-          lg_suffix[r] = lg_suffix[r] + log1pf(-alpha);
-          const float t_i = expf(log_t_end[r] - lg_suffix[r]);
-          const float one_m = 1.0f - alpha;
-          const bool contrib = t_i * one_m >= T_EPS;
-          const float gamma = gc[r][0] * cr + gc[r][1] * cg + gc[r][2] * cb + gc[r][3] * cd;
-          const float w = contrib ? alpha * t_i : 0.0f;
-          const float psi = w * gamma;
-          const float g_alpha =
-              contrib ? t_i * gamma - (psi_suffix[r] + a_psi[r] + gt_term[r]) / one_m : 0.0f;
-          psi_suffix[r] = psi_suffix[r] + psi;
-          // step 5's per-pixel terms
-          const float g_p = g_alpha * alpha;
-          acc[0] = acc[0] + g_p;
-          acc[1] = acc[1] + g_p * dx;
-          acc[2] = acc[2] + g_p * dy;
-          acc[3] = acc[3] + g_p * dx * dx;
-          acc[4] = acc[4] + g_p * dy * dy;
-          acc[5] = acc[5] + g_p * dx * dy;
-          acc[6] = acc[6] + w * gc[r][0];
-          acc[7] = acc[7] + w * gc[r][1];
-          acc[8] = acc[8] + w * gc[r][2];
-          acc[9] = acc[9] + w * gc[r][3];
-        }
-        if (__any_sync(FULL, any)) {
-#pragma unroll
-          for (int i = 0; i < N_GRAD; ++i) {
-            float v = acc[i];
-#pragma unroll
-            for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(FULL, v, off);
-            acc[i] = v;
-          }
-          if (lane == 0) {
-#pragma unroll
-            for (int i = 0; i < N_GRAD; ++i) atomicAdd(&s_grad[i][l], acc[i]);
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < SUB_H; ++r) a_psi[r] = a_psi[r] + psi_suffix[r];
-    __syncthreads();
-
-    // step 5: one gradient row per instance of the segment
-    if (g >= 0) {
-      float m[N_GRAD];
-      bool nonzero = false;
-#pragma unroll
-      for (int i = 0; i < N_GRAD; ++i) {
-        m[i] = s_grad[i][tid];
-        nonzero = nonzero || (m[i] != 0.0f);
-      }
-      if (nonzero) {
-        const float a = s_attr[2][tid], b = s_attr[3][tid], c = s_attr[4][tid];
-        const float o = s_attr[5][tid];
-        float* dst = g_attrs_v + static_cast<size_t>(g) * ROWS;
-        atomicAdd(dst + 0, a * m[1] + b * m[2]);
-        atomicAdd(dst + 1, c * m[2] + b * m[1]);
-        atomicAdd(dst + 2, -0.5f * m[3]);
-        atomicAdd(dst + 3, -m[5]);
-        atomicAdd(dst + 4, -0.5f * m[4]);
-        atomicAdd(dst + 5, m[0] / fmaxf(o, 1e-12f));
-#pragma unroll
-        for (int i = 6; i < N_GRAD; ++i) atomicAdd(dst + i, m[i]);
-      }
-    }
-  }
-}
-
-}  // namespace
+#include "composite_bwd.cuh"
 
 // attrs [V, N, 16] f32, gidx [V, K] i32, starts/counts/nproc [V, T] i32,
 // g_planes [V, T, 8, 2048] f32 (rows 0-4 read), lt_final [V, T, 2048] f32,
@@ -327,14 +27,9 @@ extern "C" int composite_bwd_fused(const void* attrs, const void* gidx,
                                    const void* nproc, void* g_attrs, int n_views,
                                    int n, int k, int nty, int ntx, float w_img,
                                    int wrap_x, void* stream) {
-  const int n_tiles = nty * ntx;
-  if (n_views == 0 || n_tiles == 0) return 0;
-  const dim3 grid(n_tiles, n_views);
-  composite_bwd_fused_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float4*>(attrs), static_cast<const int*>(gidx),
-      static_cast<const int*>(starts), static_cast<const int*>(counts),
-      static_cast<const float*>(g_planes), static_cast<const float*>(lt_final),
-      static_cast<const int*>(nproc), static_cast<float*>(g_attrs), n, k, n_tiles, ntx,
-      w_img, wrap_x);
-  return static_cast<int>(cudaGetLastError());
+  const composite::GatheredRows src{static_cast<const float4*>(attrs),
+                                    static_cast<const int*>(gidx), n, k};
+  return composite::launch_composite_bwd<composite::GatheredRows, false>(
+      src, starts, counts, g_planes, lt_final, nproc, nullptr, g_attrs, n, n_views, nty, ntx,
+      w_img, wrap_x, stream);
 }

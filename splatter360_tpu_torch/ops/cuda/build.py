@@ -1,9 +1,10 @@
 """Build the port's CUDA sources into shared libraries with a plain C ABI.
 
 Each `csrc/<name>.cu` is compiled by `nvcc` for sm_90a on first use into
-`csrc/build/` (listed in .gitignore), named by a hash of its source and
-flags so a stale library is never loaded, and bound with ctypes. `build_all`
-starts one nvcc per source at once.
+`csrc/build/` (listed in .gitignore), named by a hash of its source, the
+`csrc/` headers it includes and the flags, so a stale library is never
+loaded, and bound with ctypes. `build_all` starts one nvcc per source at
+once.
 """
 
 from __future__ import annotations
@@ -11,6 +12,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -21,7 +23,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
 )
-SOURCES = ("composite_fwd", "composite_bwd")
+SOURCES = ("composite_fwd", "composite_bwd", "composite_fwd_unfused", "composite_bwd_unfused")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 build_logs: dict[str, str] = {}
@@ -37,9 +39,22 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is installed")
 
 
+def _source_files(name: str) -> list[Path]:
+    """`<name>.cu` and every `csrc/` header it includes, directly or not."""
+    todo, seen = [CSRC / f"{name}.cu"], []
+    while todo:
+        path = todo.pop()
+        if path not in seen:
+            seen.append(path)
+            todo += [CSRC / h for h in re.findall(r'^#include "([^"]+)"', path.read_text(), re.M)]
+    return seen
+
+
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for path in _source_files(name):
+        digest.update(path.read_bytes())
+    tag = digest.hexdigest()[:12]
     return BUILD_DIR / f"lib{name}_{tag}.so"
 
 

@@ -1,4 +1,4 @@
-"""The compositor's CUDA kernel against its plain PyTorch version, on the card.
+"""The compositor's CUDA kernels against their plain PyTorch versions, on the card.
 
 Imports only torch, numpy and the port, so it runs where JAX is absent:
 
@@ -13,6 +13,8 @@ over pixels and tiles with atomics, in another order than the plain
 version: each row of g_attrs is held within 2e-3 of its max|g|, the bar of
 tests/test_pallas_composite.py:66-71, and its error's L2 norm within 1e-5
 of the row's, which a kernel right only on the largest gradients fails.
+The unfused kernels (the path past the fused table budget) are held the
+same way, through the pack, map and scatter around them.
 """
 
 import math
@@ -74,7 +76,8 @@ def saturating_scene():
 
 def scene_inputs(kind, device):
     """The compositor's inputs (one view) for a scene: attrs, gidx, starts,
-    counts, nty, ntx, w_img, wrap_x, and the assignment."""
+    counts, nty, ntx, w_img, wrap_x, and the assignment (whose tile_ids the
+    unfused pack reads)."""
     shape, *arrays = random_scene(20000, seed=5) if kind == "random" else saturating_scene()
     means, scales, quats, sh, op = (torch.as_tensor(np.asarray(x, np.float32), device=device)
                                     for x in arrays)
@@ -153,6 +156,107 @@ def test_backward_launches_once_per_backward(cuda_device):
     assert tc.launch_counts[tc.KERNEL_NAME] == counts[tc.KERNEL_NAME] + 1
     assert tc.launch_counts[tc.BWD_KERNEL_NAME] == counts[tc.BWD_KERNEL_NAME] + 1
     assert torch.isfinite(attrs.grad).all() and bool((attrs.grad[..., :10] != 0).any())
+
+
+def unfused_args(args, asg):
+    """The unfused kernels' inputs for scene_inputs' args: the packed
+    instance blocks, starts, counts, nty, ntx, w_img, wrap_x."""
+    attrs, gidx, starts, counts, nty, ntx, w_img, wrap_x = args
+    inst = tc.pack_instances(attrs, gidx, asg.tile_ids[None], nty * ntx)
+    return inst, starts, counts, nty, ntx, w_img, wrap_x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["random", "saturating"])
+def test_unfused_kernel_matches_plain_on_card(cuda_device, kind):
+    """The unfused forward kernel against its plain version at the
+    compositor bars, n_processed equal, and against the fused kernel on the
+    same instances: bit for bit."""
+    args, asg = scene_inputs(kind, cuda_device)
+    uargs = unfused_args(args, asg)
+    before = tc.launch_counts[tc.UNFUSED_KERNEL_NAME]
+    got = tc.composite_forward_unfused(*uargs)
+    ref = tc.composite_forward_unfused_plain(*uargs)
+    fused = tc.composite_forward(*args)
+    assert tc.launch_counts[tc.UNFUSED_KERNEL_NAME] == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, fused)
+    got, ref = got[0].cpu().numpy(), ref[0].cpu().numpy()
+    for plane, tol in ((0, ATOL_RGB), (1, ATOL_RGB), (2, ATOL_RGB), (3, ATOL_DEPTH), (4, ATOL_RGB)):
+        np.testing.assert_allclose(got[:, plane], ref[:, plane], atol=tol)
+    np.testing.assert_array_equal(got[:, 6], ref[:, 6])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["random", "saturating"])
+def test_unfused_backward_kernel_matches_plain_on_card(cuda_device, kind):
+    """The unfused backward kernel, map and scatter against the plain
+    backward's blocks through the same map and scatter, per row of g_attrs
+    at the bars above; its live out-blocks equal bit for bit from run to
+    run (no atomics in the kernel)."""
+    args, asg = scene_inputs(kind, cuda_device)
+    inst, starts, counts, nty, ntx, w_img, wrap_x = unfused_args(args, asg)
+    planes = tc.composite_forward_unfused(inst, starts, counts, nty, ntx, w_img, wrap_x)
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    g_planes = torch.zeros_like(planes)
+    g_planes[:, :, :5] = torch.randn(planes[:, :, :5].shape, generator=gen, device=cuda_device)
+    nproc = planes[:, :, 6, 0].to(torch.int32)
+    bwd = (inst, starts, counts, g_planes, planes[:, :, 5].contiguous(), nproc, nty, ntx, w_img,
+           wrap_x)
+    before = tc.launch_counts[tc.UNFUSED_BWD_KERNEL_NAME]
+    dout = tc.composite_backward_unfused(*bwd)
+    dout2 = tc.composite_backward_unfused(*bwd)
+    ref_dout = tc.composite_backward_unfused_plain(*bwd)
+    assert tc.launch_counts[tc.UNFUSED_BWD_KERNEL_NAME] == before + 2
+    _, live = tc.out_block_map(starts, counts, nproc, dout.shape[1])
+    assert torch.equal(dout[live], dout2[live])
+    n = args[0].shape[1]
+    got = tc.scatter_out_blocks(dout, args[1], starts, counts, nproc, n)[0].cpu().numpy()
+    ref = tc.scatter_out_blocks(ref_dout, args[1], starts, counts, nproc, n)[0].cpu().numpy()
+    assert np.isfinite(got).all()
+    np.testing.assert_array_equal(got[:, 10:], 0.0)
+    for row in range(tc.N_GRAD):
+        scale = np.abs(ref[:, row]).max() + 1e-12
+        np.testing.assert_allclose(got[:, row] / scale, ref[:, row] / scale, atol=GRAD_TOL,
+                                   err_msg=f"row {row}")
+        l2 = np.linalg.norm(got[:, row] - ref[:, row]) / (np.linalg.norm(ref[:, row]) + 1e-30)
+        assert l2 <= L2_TOL, (row, l2)
+
+
+@pytest.mark.cuda
+def test_composite_tiles_takes_the_unfused_kernels_past_the_budget(cuda_device, monkeypatch):
+    """Past FUSED_TABLE_BUDGET composite_tiles launches one unfused forward
+    and, under backward(), one unfused backward, and no fused kernel."""
+    monkeypatch.setattr(tc, "FUSED_TABLE_BUDGET", 0)
+    args, asg = scene_inputs("random", cuda_device)
+    attrs = args[0].clone().requires_grad_(True)
+    shape = (asg.num_tiles_y * 16, int(args[6]))
+    counts = dict(tc.launch_counts)
+    rgb, alpha, depth = tc.composite_tiles([asg], attrs, shape, torch.zeros(3, device=cuda_device),
+                                           True)
+    (rgb.sum() + alpha.sum() + depth.sum()).backward()
+    torch.cuda.synchronize()
+    delta = {k: tc.launch_counts[k] - counts[k] for k in counts}
+    assert delta == {tc.KERNEL_NAME: 0, tc.BWD_KERNEL_NAME: 0, tc.UNFUSED_KERNEL_NAME: 1,
+                     tc.UNFUSED_BWD_KERNEL_NAME: 1}
+    assert torch.isfinite(attrs.grad).all() and bool((attrs.grad[..., :10] != 0).any())
+
+
+def test_unfused_kernels_refuse_bad_inputs():
+    """The unfused wrappers check layout and dtype before any launch (on any
+    host)."""
+    inst = torch.zeros(1, 2, 16, 128)
+    seg = torch.zeros(1, 2, dtype=torch.int32)
+    with pytest.raises(ValueError, match="inst"):
+        tc.composite_forward_unfused(inst[..., :64], seg, seg, 1, 2, 256.0, True)
+    with pytest.raises(ValueError, match="counts"):
+        tc.composite_forward_unfused(inst, seg, seg[:, :1], 1, 2, 256.0, True)
+    g_planes = torch.zeros(1, 2, 8, 2048)
+    lt = torch.zeros(1, 2, 2048)
+    with pytest.raises(ValueError, match="inst"):
+        tc.composite_backward_unfused(inst.double(), seg, seg, g_planes, lt, seg, 1, 2, 256.0, True)
+    with pytest.raises(ValueError, match="nproc"):
+        tc.composite_backward_unfused(inst, seg, seg, g_planes, lt, seg.long(), 1, 2, 256.0, True)
 
 
 def test_kernel_refuses_bad_inputs():

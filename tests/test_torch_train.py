@@ -95,7 +95,8 @@ def test_render_backward_vs_jax(interpret, kind, loss):
     quadratic pixel sums from tile-local moments, which cancel when the
     cotangents change sign. The test also measures how far the Pallas
     backward strays from that autograd, prints it beside the port's
-    distance, and holds the port to be the nearer of the two."""
+    distance, and holds the port to be the nearer of the two; and it holds
+    the port's unfused path (_CompositeUnfused) to the same autograd."""
     shape, g = random_scene() if kind == "random" else saturating_scene()
     rng = np.random.default_rng(3)
     weights = [rng.normal(size=(*shape, 3)), rng.normal(size=shape), 0.1 * rng.normal(size=shape)]
@@ -134,6 +135,15 @@ def test_render_backward_vs_jax(interpret, kind, loss):
               f"opacities): port {[f'{x:.2e}' for x in port]}, "
               f"Pallas {[f'{x:.2e}' for x in pallas]}")
         assert max(port) < max(pallas)
+
+        # the unfused path (_CompositeUnfused, taken past the fused budget)
+        # against the same reference
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(tc, "FUSED_TABLE_BUDGET", 0)
+            unfused = [torch.tensor(x, requires_grad=True) for x in g]
+            out = t_render(*unfused, torch.eye(4), shape, render_depth=True)
+            total(out.color, out.alpha, out.depth, torch.from_numpy).backward()
+        assert_grads_close(ref, [x.grad.numpy() for x in unfused], names)
 
 
 def close(ref, got, rtol):
