@@ -8,12 +8,15 @@ Phases (any failure ends in a non-zero exit and no result line):
   2. hold the forward compositor kernel against its plain PyTorch version at
      the flagship render shapes (512x1024 ERP, N = 2*512*1024 Gaussians), and
      (2b) the backward kernel against its plain version there, with a seeded
-     cotangent;
+     cotangent, at the default span and at span 1 (every block its own work
+     item), the plain version at the same span;
   2c. hold the unfused forward kernel (the path past the fused kernels'
      table budget) against its plain version and against the fused kernel
      at the 3-view flagship shapes (N = 3*512*1024, one view), and (2d) the
      unfused backward kernel, with the block map and scatter, against its
-     plain version and against the fused backward there;
+     plain version and against the fused backward there, at both spans; at
+     span 1 its blocks equal those of one span a tile bit for bit (both sum
+     across blocks in walk order);
   3. serve N_REQUESTS HM3D-width requests through the port's entry points
      (2 context panoramas -> encode -> N Gaussians -> 4 target ERP views with
      depth), counting kernel launches, and (3b) compare the GPU serving path
@@ -28,7 +31,11 @@ Phases (any failure ends in a non-zero exit and no result line):
      on a small input with both on the unfused path (3g);
   4. time each kernel and its plain version with CUDA events, the unfused
      path's pack and scatter apart, the fused kernels on the 3-view inputs,
-     and the serving render stage by stage.
+     and the serving render stage by stage; both backward kernels at their
+     training shapes, on the last step's Gaussians and on the first step's,
+     for each span of SPANS in turns (None: one span a tile, the design
+     before spans), with the blocks each tile walks, the warps' visits per
+     block, and the time with every tile capped at 64 blocks.
 It prints one JSON line of per-kernel numbers, the nvidia-smi line, and as
 its last line {"ok": true, "device": {...}}.
 """
@@ -79,6 +86,9 @@ GRAD_TOL = 2e-3
 # and, per row, |g_kernel - g_plain|_2 / |g_plain|_2: a kernel right only on
 # the few largest gradients fails it, float atomics (~2e-8 of max|g|) do not
 L2_TOL = 1e-5
+# the backward's spans timed in phase 4 (blocks of a tile's walk one work
+# item takes; None: the whole walk)
+SPANS = (1, 4, 16, 64, None)
 
 failures: list[str] = []
 
@@ -242,21 +252,21 @@ def bwd_args(inp, seed):
             inp["nty"], inp["ntx"], float(W), True)
 
 
-def compare_bwd_plain(inp, label, seed):
-    """Backward kernel (twice) vs plain on the same inputs: per-row error
-    relative to the row's max|g| against GRAD_TOL, the largest absolute
-    error, the largest difference between the two kernel runs (atomics),
-    the plain version's ms and its work counts."""
+def compare_bwd_plain(inp, label, seed, span):
+    """Backward kernel (twice) vs plain on the same inputs, both with spans
+    of `span` blocks: per-row error relative to the row's max|g| against
+    GRAD_TOL, the largest absolute error, the largest difference between the
+    two kernel runs (atomics), the plain version's ms and its work counts."""
     from splatter360_tpu_torch.ops.cuda.composite import (
         N_GRAD, composite_backward, composite_backward_plain)
 
     args = bwd_args(inp, seed)
-    gk = composite_backward(*args)
-    gk2 = composite_backward(*args)
+    gk = composite_backward(*args, span=span)
+    gk2 = composite_backward(*args, span=span)
     stats: dict = {}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    gp = composite_backward_plain(*args, stats=stats)
+    gp = composite_backward_plain(*args, stats=stats, span=span)
     torch.cuda.synchronize()
     plain_ms = 1e3 * (time.perf_counter() - t0)
     rel, l2 = row_errors(gk, gp)
@@ -268,8 +278,8 @@ def compare_bwd_plain(inp, label, seed):
     err = float((gk - gp).abs().max())
     repeat = float((gk - gk2).abs().max())
     repeat_rel, _ = row_errors(gk2, gk)
-    print(f"[{label}] backward: views={gk.shape[0]}, per row (u v a b c o r g b depth): "
-          f"max|kernel-plain|/max|plain| {[f'{x:.2e}' for x in rel]} (bar {GRAD_TOL:g}); "
+    print(f"[{label}] backward, span {span}: views={gk.shape[0]}, per row (u v a b c o r g b "
+          f"depth): max|kernel-plain|/max|plain| {[f'{x:.2e}' for x in rel]} (bar {GRAD_TOL:g}); "
           f"|kernel-plain|_2/|plain|_2 {[f'{x:.2e}' for x in l2]} (bar {L2_TOL:g}); "
           f"max|plain| {[f'{x:.3e}' for x in scale.tolist()]}; median |plain| over the "
           f"instances it touches {[f'{x:.3e}' for x in median]}; max abs err {err:.3e}; two "
@@ -332,13 +342,13 @@ def row_errors(got, ref):
     return rel, l2
 
 
-def compare_unfused_bwd_plain(inp, label, seed):
+def compare_unfused_bwd_plain(inp, label, seed, span):
     """The unfused backward (kernel, block map, scatter; twice) against its
     plain version through the same map and scatter, and against the fused
-    backward kernel on the same inputs: per row against GRAD_TOL and L2_TOL.
-    Returns the largest absolute error, the repeat differences of the
-    kernel's blocks and of the scattered gradients, the plain version's ms
-    and its work counts."""
+    backward kernel on the same inputs, all with spans of `span` blocks: per
+    row against GRAD_TOL and L2_TOL. Returns the largest absolute error, the
+    repeat differences of the kernel's blocks and of the scattered
+    gradients, the plain version's ms and its work counts."""
     from splatter360_tpu_torch.ops.cuda import composite as comp
 
     args = unfused_bwd_args(inp, seed)
@@ -348,16 +358,17 @@ def compare_unfused_bwd_plain(inp, label, seed):
     def scatter(dout):
         return comp.scatter_out_blocks(dout, inp["gidx"], starts, counts, nproc, n)
 
-    dk, dk2 = comp.composite_backward_unfused(*args), comp.composite_backward_unfused(*args)
+    dk = comp.composite_backward_unfused(*args, span=span)
+    dk2 = comp.composite_backward_unfused(*args, span=span)
     gk, gk2 = scatter(dk), scatter(dk2)
     stats: dict = {}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    dp = comp.composite_backward_unfused_plain(*args, stats=stats)
+    dp = comp.composite_backward_unfused_plain(*args, stats=stats, span=span)
     torch.cuda.synchronize()
     plain_ms = 1e3 * (time.perf_counter() - t0)
     gp = scatter(dp)
-    gf = comp.composite_backward(inp["attrs"], inp["gidx"], starts, counts, *args[3:])
+    gf = comp.composite_backward(inp["attrs"], inp["gidx"], starts, counts, *args[3:], span=span)
     _, live = comp.out_block_map(starts, counts, nproc, dk.shape[1])
     blocks_repeat = float((dk[live] - dk2[live]).abs().max())
     repeat = float((gk - gk2).abs().max())
@@ -366,8 +377,9 @@ def compare_unfused_bwd_plain(inp, label, seed):
     rel_f, l2_f = row_errors(gk, gf)
     err = float((gk - gp).abs().max())
     scale = gp[..., :comp.N_GRAD].reshape(-1, comp.N_GRAD).abs().amax(dim=0)
-    print(f"[{label}] unfused backward: views={gk.shape[0]}, per row (u v a b c o r g b depth) "
-          f"against the plain version: max|kernel-plain|/max|plain| {[f'{x:.2e}' for x in rel]} "
+    print(f"[{label}] unfused backward, span {span}: views={gk.shape[0]}, per row (u v a b c o r g "
+          f"b depth) against the plain version: max|kernel-plain|/max|plain| "
+          f"{[f'{x:.2e}' for x in rel]} "
           f"(bar {GRAD_TOL:g}), L2 {[f'{x:.2e}' for x in l2]} (bar {L2_TOL:g}); against the fused "
           f"backward kernel: {[f'{x:.2e}' for x in rel_f]}, L2 {[f'{x:.2e}' for x in l2_f]}; "
           f"max|plain| {[f'{x:.3e}' for x in scale.tolist()]}; max abs err {err:.3e}; two runs: "
@@ -381,7 +393,67 @@ def compare_unfused_bwd_plain(inp, label, seed):
         raise AssertionError(f"[{label}] unfused backward disagrees with the plain version, "
                              f"the fused backward, or itself")
     return dict(args=args, err=err, rel=max(rel), l2=max(l2), repeat=repeat,
-                blocks_repeat=blocks_repeat, plain_ms=plain_ms, stats=stats)
+                blocks_repeat=blocks_repeat, plain_ms=plain_ms, stats=stats, dout=dk, live=live)
+
+
+def nproc_report(nproc, label):
+    """The backward's walk over (view, tile): blocks a tile walks (the
+    forward's n_processed), their max, p99 and mean, the tiles above 64."""
+    flat = nproc.flatten().float()
+    rep = dict(max=int(flat.max()), p99=float(torch.quantile(flat, 0.99)), mean=float(flat.mean()),
+               above_64=int((flat > 64).sum()), tiles=flat.numel(), blocks=int(flat.sum()))
+    print(f"[{label}] blocks walked per (view, tile): {rep}")
+    return rep
+
+
+def region_visits(inp, nproc, label):
+    """How evenly a walked block's work falls on the backward kernel's 16
+    warps: per walked block, the instances whose radius box (widened by a
+    pixel) touches each 32x4 region (each a warp's visit), summed over the
+    regions and at the busiest region; printed as means over the blocks."""
+    v, t = nproc.shape
+    seg = torch.arange(v * t, device=nproc.device).repeat_interleave(nproc.reshape(-1).long())
+    j = torch.arange(seg.numel(), device=nproc.device)
+    first = torch.cumsum(nproc.reshape(-1).long(), 0) - nproc.reshape(-1).long()
+    j = j - first[seg]
+    view, tile = seg // t, seg % t
+    start = inp["starts"].reshape(-1).long()[seg]
+    end = start + inp["counts"].reshape(-1).long()[seg]
+    idx = ((start // 128 + j) * 128)[:, None] + torch.arange(128, device=nproc.device)
+    ok = (idx >= start[:, None]) & (idx < end[:, None])
+    g = inp["gidx"][view[:, None], idx.clamp(max=inp["gidx"].shape[1] - 1)].long()
+    row = inp["attrs"][view[:, None], g]  # [B, 128, 16]
+    x0 = ((tile % inp["ntx"]) * 128).float()[:, None]
+    y0 = ((tile // inp["ntx"]) * 16).float()[:, None]
+    u = row[..., 0] + W * torch.round((x0 + 64.0 - row[..., 0]) / W)
+    du, dv, rx, ry = u - x0, row[..., 1] - y0, row[..., 10], row[..., 11]
+    hit = ok & (du + rx + 1 >= 0) & (du - rx - 1 <= 127) & (dv + ry + 1 >= 0) & (dv - ry - 1 <= 15)
+    xa = ((du - rx - 1).clamp(min=0).floor() / 32).floor()
+    xb = ((du + rx + 1).clamp(max=127).floor() / 32).floor()
+    ya = ((dv - ry - 1).clamp(min=0).floor() / 4).floor()
+    yb = ((dv + ry + 1).clamp(max=15).floor() / 4).floor()
+    r = torch.arange(16, device=nproc.device).float()
+    rc, rr = (r % 4)[None, None], (r // 4)[None, None]
+    member = (hit[..., None] & (xa[..., None] <= rc) & (rc <= xb[..., None])
+              & (ya[..., None] <= rr) & (rr <= yb[..., None]))
+    per_region = member.sum(dim=1).float()  # [B, 16]
+    total, busiest = per_region.sum(dim=1), per_region.max(dim=1).values
+    print(f"[{label}] warp visits per walked block: {float(total.mean()):.1f} over 16 regions, "
+          f"{float(busiest.mean()):.1f} at the busiest (an even share would be "
+          f"{float(total.mean()) / 16:.1f}); instances a block "
+          f"{float(ok.sum(1).float().mean()):.1f}")
+
+
+def span_sweep(backward, args, label, iters=5):
+    """backward(*args, span=S) for each S of SPANS, timed in turns: SPANS in
+    order, then reversed. Returns {S: [ms, ms]}."""
+    ms = {span: [] for span in SPANS}
+    for order in (SPANS, SPANS[::-1]):
+        for span in order:
+            ms[span].append(time_cuda(lambda: backward(*args, span=span), iters=iters))
+    print(f"[{label}] by span (ms, in turns): "
+          + ", ".join(f"{k}: {v[0]:.3f} / {v[1]:.3f}" for k, v in ms.items()))
+    return ms
 
 
 def time_cuda(fn, iters, warmup=1):
@@ -417,9 +489,20 @@ def phase_kernel_check(seed):
     return dict(inp=inp, err=err, stats=stats)
 
 
-@phase("2b. backward kernel vs plain at flagship shapes")
+def at_spans(compare, spans):
+    """compare(span) at each span; the first span's result, with the
+    largest error of all."""
+    res = [compare(span) for span in spans]
+    return dict(res[0], err=max(r["err"] for r in res), by_span=dict(zip(spans, res)))
+
+
+@phase("2b. backward kernel vs plain at flagship shapes, default span and span 1")
 def phase_bwd_check(check, seed):
-    return dict(inp=check["inp"], **compare_bwd_plain(check["inp"], "bench scene, 1 view", seed + 2))
+    from splatter360_tpu_torch.ops.cuda.composite import BWD_SPAN
+
+    return dict(inp=check["inp"], **at_spans(
+        lambda span: compare_bwd_plain(check["inp"], "bench scene, 1 view", seed + 2, span),
+        (BWD_SPAN, 1)))
 
 
 @phase("2c. unfused forward kernel vs plain and vs the fused kernel, 3-view flagship shapes")
@@ -450,10 +533,24 @@ def max_fused_difference(inp, label):
     return diff
 
 
-@phase("2d. unfused backward (kernel, map, scatter) vs plain and vs the fused backward")
+@phase("2d. unfused backward (kernel, map, scatter) vs plain and vs the fused backward, "
+       "default span and span 1")
 def phase_unfused_bwd_check(check, seed):
-    return dict(inp=check["inp"], **compare_unfused_bwd_plain(
-        check["inp"], "3-view bench scene, 1 view", seed + 2))
+    from splatter360_tpu_torch.ops.cuda.composite import BWD_SPAN, composite_backward_unfused
+
+    res = at_spans(lambda span: compare_unfused_bwd_plain(
+        check["inp"], "3-view bench scene, 1 view", seed + 2, span), (BWD_SPAN, 1))
+    # spans of one block add across blocks in walk order, as one span a tile
+    # does: the same bits
+    one = res["by_span"][1]
+    whole = composite_backward_unfused(*one["args"], span=None)
+    live = one["live"]
+    same = torch.equal(one["dout"][live], whole[live])
+    print(f"[3-view bench scene, 1 view] unfused backward, span 1 vs one span a tile: live "
+          f"out-blocks bit-equal {same}")
+    if not same:
+        raise AssertionError("the unfused backward at span 1 differs from one span a tile")
+    return dict(inp=check["inp"], **res)
 
 
 def request_data(gen, near=0.1, far=10.0, n_ctx=N_CTX):
@@ -696,11 +793,10 @@ def train_steps(seed, n_ctx):
     unfused path the scatter's, inside the backward), kernel calls (exactly
     one forward and one backward of the path N takes) and peak memory; then
     the backward kernel against its plain version on the last step's
-    Gaussians rendered into its N_TGT target views."""
+    Gaussians rendered into its N_TGT target views; the first step's
+    Gaussians and backward inputs kept for phase 4."""
     from splatter360_tpu_torch.models.encoder import HM3D
-    from splatter360_tpu_torch.models.types import Gaussians
     from splatter360_tpu_torch.ops.cuda import composite as comp
-    from splatter360_tpu_torch.serve import context_cubes
     from splatter360_tpu_torch.train.state import TrainConfig, create_train_state, train_step
 
     fwd_name, bwd_name = path_kernels(n_ctx * H * W)
@@ -708,6 +804,9 @@ def train_steps(seed, n_ctx):
     state = create_train_state(HM3D, TrainConfig(), seed=seed, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(seed + 3)
     batches = [train_batch(gen, n_ctx=n_ctx) for _ in range(N_STEPS)]
+    # the first step's Gaussians before any update, where the random weights
+    # pile instances into a few tiles (timed in phase 4)
+    first = step_inputs(state, batches[0], unfused)
     torch.cuda.synchronize()
 
     # CUDA events around the backward kernel's calls (and the scatter's)
@@ -783,21 +882,32 @@ def train_steps(seed, n_ctx):
 
     # the last step's Gaussians, rendered into its target views: backward
     # kernel vs plain at the training shapes
-    ctx, tgt = batches[-1]["context"], batches[-1]["target"]
+    inp = step_inputs(state, batches[-1], unfused)
+    del state
+    label = f"train-step Gaussians ({n_ctx} context panoramas), {N_TGT} views"
+    if unfused:
+        res = compare_unfused_bwd_plain(inp, label, seed + 4, comp.BWD_SPAN)
+    else:
+        res = compare_bwd_plain(inp, label, seed + 4, comp.BWD_SPAN)
+    first_args = (unfused_bwd_args if unfused else bwd_args)(first, seed + 4)
+    return dict(steps=steps, launches=launches, inp=inp, first=dict(inp=first, args=first_args),
+                **res)
+
+
+def step_inputs(state, batch, unfused):
+    """render_inputs of the Gaussians state's model makes from the batch's
+    context, into the batch's target views (with_inst on the unfused path)."""
+    from splatter360_tpu_torch.models.types import Gaussians
+    from splatter360_tpu_torch.serve import context_cubes
+
+    ctx, tgt = batch["context"], batch["target"]
     with torch.no_grad():
         g, _ = state.model(ctx["image_sphere"], context_cubes(ctx["image_sphere"], H // 2),
                            ctx["extrinsics_sphere"], ctx["near"], ctx["far"], state.step)
-    del state
     g = Gaussians(*(x[0] for x in g))
     inp = render_inputs(g.means, g.covariances, g.harmonics, g.opacities,
                         list(tgt["extrinsics_sphere"][0]), 0.1)
-    label = f"train-step Gaussians ({n_ctx} context panoramas), {N_TGT} views"
-    if unfused:
-        inp = with_inst(inp)
-        res = compare_unfused_bwd_plain(inp, label, seed + 4)
-    else:
-        res = compare_bwd_plain(inp, label, seed + 4)
-    return dict(steps=steps, launches=launches, inp=inp, **res)
+    return with_inst(inp) if unfused else inp
 
 
 @phase("3c. HM3D-width train steps")
@@ -926,10 +1036,31 @@ def phase_timing(check, serve, bcheck, train, ucheck, ubcheck, serve3, train3):
         backward = comp.composite_backward_unfused if unfused else comp.composite_backward
         ms = time_cuda(lambda: backward(*args), iters=10)
         b_ms, b_by, ops_ms, bytes_ms = bwd_bound_ms(inp, res["stats"], unfused)
-        print(f"[{label}] kernel {ms:.3f} ms, plain {res['plain_ms']:.1f} ms, bound {b_ms:.4f} ms "
-              f"set by {b_by} (operations {ops_ms:.4f} ms, bytes {bytes_ms:.4f} ms), "
-              f"{res['stats']}")
+        print(f"[{label}] kernel {ms:.3f} ms (span {comp.BWD_SPAN}), plain {res['plain_ms']:.1f} "
+              f"ms, bound {b_ms:.4f} ms set by {b_by} (operations {ops_ms:.4f} ms, bytes "
+              f"{bytes_ms:.4f} ms), {res['stats']}")
         rows[label] = dict(ms=ms, plain_ms=res["plain_ms"], bound_ms=b_ms, bound_by=b_by)
+        at = 5 if unfused else 6  # nproc
+        rep = nproc_report(args[at], label)
+        region_visits(inp, args[at], label)
+        rows[label]["span_ms"] = sweep = span_sweep(backward, args, label)
+        # how much of the time the heavy tiles take: the walk capped at 64
+        # blocks a tile (an input to this timing only, never to a check)
+        capped = list(args)
+        capped[at] = args[at].clamp(max=64)
+        capped_ms = {span: time_cuda(lambda: backward(*capped, span=span), iters=5)
+                     for span in (None, comp.BWD_SPAN)}
+        print(f"[{label}] one span a tile: {1e3 * np.mean(sweep[None]) / rep['max']:.3f} us per "
+              f"walked block of the heaviest tile; every tile capped at 64 blocks: "
+              + ", ".join(f"span {k} {v:.3f} ms" for k, v in capped_ms.items()))
+        if "first" in res:
+            # the first step's Gaussians: the same sweep where a few tiles
+            # hold most blocks
+            f_label = f"{label}, step 0 Gaussians"
+            f_args = res["first"]["args"]
+            nproc_report(f_args[at], f_label)
+            region_visits(res["first"]["inp"], f_args[at], f_label)
+            rows[label]["first_span_ms"] = span_sweep(backward, f_args, f_label)
         if unfused:
             # the scatter apart, and the fused backward kernel on the same
             # inputs (what the JAX threshold costs here)

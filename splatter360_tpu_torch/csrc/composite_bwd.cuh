@@ -25,16 +25,44 @@
 // As in the Pallas kernels, d alpha / d power = alpha and d alpha / d o =
 // alpha / o even where alpha was capped at 0.99.
 //
-// The design: one thread block owns a tile and walks its blocks in order, so
-// the heaviest tile sets the time.
-// - one 512-thread block per (view, tile); warp w owns the 32x4-pixel region
-//   w of the tile (the forward's regions), each thread one column of 4
-//   pixels with their state (suffix, a_psi, logT_final, cotangents) in
-//   registers;
+// The design: a tile's walk is cut into spans that run at once.
+// - The state a block takes from the blocks after it is two per-pixel sums
+//   over them: suffix (of log1p(-alpha), unmasked) and a_psi (of psi). A
+//   work item is (view, tile, span): up to S consecutive walked blocks,
+//   counted from the last walked block down (span 0 holds the last blocks).
+//   Only a tile that walks more than `heavy` blocks is cut: the caller sets
+//   heavy to the call's walked blocks over 528 (4 x the H100's 132 SMs),
+//   near which one tile's walk alone would outlast the rest of the call; a
+//   lighter tile is one span, its whole walk, and pays no extra passes.
+//   Items are numbered tile by tile (item_end: the inclusive cumsum over
+//   (view, tile) of the spans, built by the caller), and an item finds its
+//   tile by binary search. The grid is sized from shapes,
+//   V T + ceil(V NBLK / S) items, so no count leaves the device; items past
+//   the real count return.
+// - pass 1: every span but the tile's first-walked-last (the lowest blocks)
+//   stores L[item][pixel], its blocks' sum_lg added last block first;
+//   scan: per (tile, pixel), L becomes each span's starting suffix, the
+//   later spans' L added last span first (one thread a pixel, no atomics);
+//   pass 2: the same spans walk again from that suffix (telescoped
+//   log_t_end, the tile-wide gate, the pair gate) and store P[item][pixel],
+//   their gated blocks' psi summed as step 4 sums it; scan P likewise into
+//   each span's starting a_psi; pass 3: every item runs steps 1-5 over its
+//   own blocks from its starting suffix and a_psi. A tile of one span:
+//   passes 1-2 skip it, pass 3 is the old walk.
+//   Every walked block is written by exactly one item. Scratch L and P:
+//   2 x 8 KB per item of the grid, allocated by the caller (S = 16 at the
+//   3-view training shapes: 7,168 items, 117 MB).
+// - inside an item, one 512-thread block; warp w owns the 32x4-pixel region
+//   w of the tile (the forward's regions), cut into four parts of 8x4
+//   pixels, one pixel a lane in each part, with its state (suffix, a_psi,
+//   logT_final, cotangents) in registers, at most 64 of them so that two
+//   blocks share an SM;
 // - per block, threads 0-127 read one instance's row each into shared
 //   memory and mark the regions its radius box, widened by a pixel, touches;
-//   each warp walks only its marked instances (one ballot per 32 lanes). A
-//   pair outside the box has alpha = 0 and adds exactly 0 to every sum, so
+//   each warp walks only its marked instances (one ballot per 32 lanes), and
+//   of each only the parts the box reaches (an instance a few pixels wide
+//   takes one or two parts, not all four rows of the region). A pair
+//   outside the box has alpha = 0 and adds exactly 0 to every sum, so
 //   skipping it changes nothing;
 // - the tile-wide gate of step 4 is one __syncthreads_or;
 // - step 5 reduces each (warp, instance)'s ten sums by warp shuffles. Then:
@@ -46,12 +74,21 @@
 //   warp order, and plain stores write the block's gradient rows (rows 10-15
 //   zero) to the tile's own output block dout[obase[tile] + j], as the
 //   Pallas `_backward_kernel` does; a walked block that fails the gate
-//   writes zeros, a block past n_processed is not written. No atomics: the
-//   same inputs give the same bits.
+//   writes zeros, a block past n_processed is not written. No atomics and
+//   fixed orders everywhere: the same inputs give the same bits.
+// What bounds it now: instruction issue at a low lane occupancy. A warp's
+// visit of an instance carries ~16 gated pairs (pixels) of its region on 32
+// lanes and costs two alpha chains, log1p, exp, a division and a ten-value
+// shuffle reduction; the busiest region of a block takes 1.8-3.4 times an
+// even share of the visits while the other warps wait at the block's
+// barriers. Passes 1-2 walk every span but a cut tile's lowest twice more:
+// the price of a heavy tile's blocks running at once, paid only by the
+// tiles past the threshold.
 // The plain PyTorch versions sum log1p(-alpha) in this kernel's lane order
-// (with -fmad=false both round alike), so the gate of step 4 decides alike;
-// their back-to-front walk is taken as suffix sums, which round differently,
-// as do their sums over pixels and tiles.
+// and across blocks and spans in its order (with -fmad=false both round
+// alike), so the gate of step 4 decides alike; their back-to-front walk is
+// taken as suffix sums, which round differently, as do their sums over
+// pixels and tiles.
 
 #pragma once
 
@@ -60,12 +97,19 @@
 namespace composite {
 
 constexpr int BWD_THREADS = 32 * N_SUB;  // one warp per region
+constexpr int BWD_MIN_BLOCKS = 2;        // resident blocks an SM
+constexpr int SCAN_THREADS = 256;
+// a region's parts: 8 columns x 4 rows, one pixel a lane
+constexpr int PART_W = 32 / SUB_H;
+constexpr int N_PART = SUB_W / PART_W;
+static_assert(PART_W * SUB_H == 32 && N_PART == 4, "a part: one pixel a lane; four a region");
 constexpr unsigned FULL = 0xffffffffu;
 // the unfused kernel's per-warp sums: [N_SUB][N_GRAD][CHUNK] floats
 constexpr int BWD_SLOT_BYTES = N_SUB * N_GRAD * CHUNK * 4;
 
 static_assert(N_SUB <= 32, "one mask bit per region");
 static_assert(BWD_THREADS >= CHUNK, "threads 0-127 read one instance each");
+static_assert(N_PIX % SCAN_THREADS == 0, "the scan covers a tile's pixels exactly");
 
 // Bit w set when region w of the tile may hold a pixel with |px - u| <= rx
 // and |py - v| <= ry, for a centre (du, dv) relative to the tile's corner.
@@ -104,29 +148,88 @@ __device__ __forceinline__ float pair_alpha(const float (*s)[CHUNK + 1], int l, 
   return fminf(alpha, 0.99f);
 }
 
-// out: g_attrs [V, n_out = N, 16] (fused, zeroed by the caller) or dout
-// [V, n_out = NBLK + T, 16, 128] (TILE_OWNED; obase [V, T] is each tile's
-// first output block).
-template <class Src, bool TILE_OWNED>
-__global__ void __launch_bounds__(BWD_THREADS)
+// The parts ka..kb of the region whose left column is x_left (8 columns
+// each) that instance l's radius box, widened by a pixel, may touch. The
+// instance's region mark guarantees ka <= kb.
+__device__ __forceinline__ void parts_of(const float (*s)[CHUNK + 1], int l, float x_left,
+                                         int& ka, int& kb) {
+  const float c0 = s[0][l] - s[10][l] - 1.0f - x_left;
+  const float c1 = s[0][l] + s[10][l] + 1.0f - x_left;
+  ka = static_cast<int>(fmaxf(c0, 0.0f)) / PART_W;
+  kb = static_cast<int>(fminf(c1, SUB_W - 1.0f)) / PART_W;
+}
+
+// The span length of a tile that walks n blocks: `span` for a tile heavier
+// than `heavy` blocks, else the whole walk.
+__device__ __forceinline__ int tile_span(int n, int span, int heavy) {
+  return n > heavy ? span : max(n, 1);
+}
+
+// Spans of a tile's walk; span 0 holds the last walked blocks.
+__device__ __forceinline__ int n_spans_of(int n, int span, int heavy) {
+  const int sp = tile_span(n, span, heavy);
+  return (n + sp - 1) / sp;
+}
+
+// Work item `item` -> (view * n_tiles + tile, its span, the tile's spans, the
+// span's highest and lowest walked block); false past the last item.
+struct SpanItem {
+  int seg, s, n_spans, j_hi, j_lo;
+};
+
+__device__ inline bool find_item(const int* __restrict__ item_end, const int* __restrict__ nproc,
+                                 int n_segs, int span, int heavy, int item, SpanItem& it) {
+  if (item >= item_end[n_segs - 1]) return false;
+  int lo = 0, hi = n_segs - 1;  // the first seg whose item_end exceeds item
+  while (lo < hi) {
+    const int mid = (lo + hi) / 2;
+    if (item_end[mid] > item) {
+      hi = mid;
+    } else {
+      lo = mid + 1;
+    }
+  }
+  const int n = nproc[lo];
+  const int sp = tile_span(n, span, heavy);
+  it.seg = lo;
+  it.n_spans = (n + sp - 1) / sp;
+  it.s = item - (item_end[lo] - it.n_spans);
+  it.j_hi = n - 1 - it.s * sp;
+  it.j_lo = max(0, it.j_hi - (sp - 1));
+  return true;
+}
+
+// PASS 1 stores each span's L in `lsum`, PASS 2 its P in `psum` (both
+// [items, 2048]; after the scans they hold each span's starting suffix and
+// a_psi); PASS 3 writes the gradients. out: g_attrs [V, n_out = N, 16]
+// (fused, zeroed by the caller) or dout [V, n_out = NBLK + T, 16, 128]
+// (TILE_OWNED; obase [V, T] is each tile's first output block).
+template <class Src, bool TILE_OWNED, int PASS>
+__global__ void __launch_bounds__(BWD_THREADS, BWD_MIN_BLOCKS)
 composite_bwd_kernel(Src src, const int* __restrict__ starts, const int* __restrict__ counts,
                      const float* __restrict__ g_planes, const float* __restrict__ lt_final,
                      const int* __restrict__ nproc, const int* __restrict__ obase,
-                     float* __restrict__ out, int n_out, int n_tiles, int ntx, float w_img,
-                     int wrap_x) {
+                     const int* __restrict__ item_end, int span,
+                     const int* __restrict__ heavy, float* __restrict__ lsum,
+                     float* __restrict__ psum, float* __restrict__ out, int n_out, int n_segs,
+                     int n_tiles, int ntx, float w_img, int wrap_x) {
+  constexpr bool GRADS = PASS == 3;
   __shared__ float s_attr[ROWS][CHUNK + 1];
   __shared__ unsigned s_mask[CHUNK];
-  __shared__ float s_grad[TILE_OWNED ? 1 : N_GRAD][CHUNK + 1];
-  extern __shared__ float s_slot[];  // TILE_OWNED: [N_SUB][N_GRAD][CHUNK]
+  __shared__ float s_grad[(TILE_OWNED || !GRADS) ? 1 : N_GRAD][CHUNK + 1];
+  extern __shared__ float s_slot[];  // TILE_OWNED, PASS 3: [N_SUB][N_GRAD][CHUNK]
 
-  const int tile = blockIdx.x;
-  const int view = blockIdx.y;
+  SpanItem it;
+  if (!find_item(item_end, nproc, n_segs, span, *heavy, blockIdx.x, it)) return;
+  // passes 1-2: only spans that a later-walked span waits for
+  if (!GRADS && it.s == it.n_spans - 1) return;
+  const int item = blockIdx.x;
+  const int seg = it.seg;
+  const int view = seg / n_tiles;
+  const int tile = seg % n_tiles;
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
-  const int seg = view * n_tiles + tile;
-  const int n_walk = nproc[seg];
-  if (n_walk <= 0) return;  // uniform over the block
   const int start = starts[seg];
   const int count = counts[seg];
   const int blk0 = start / CHUNK;
@@ -136,22 +239,32 @@ composite_bwd_kernel(Src src, const int* __restrict__ starts, const int* __restr
   const float xc = x0 + TILE_W * 0.5f;
   const int cx0 = (warp % SUB_X) * SUB_W;
   const int ry0 = (warp / SUB_X) * SUB_H;
-  const float px = x0 + static_cast<float>(cx0 + lane);
+  // the lane's pixel in each part k of the region: column cx0 + 8 k + lane % 8,
+  // row ry0 + lane / 8
+  const int lane_x = cx0 + lane % PART_W;
+  const int lane_y = ry0 + lane / PART_W;
+  const float py = y0 + static_cast<float>(lane_y);
   const unsigned my_bit = 1u << warp;
+  auto pixel = [&](int k) { return lane_y * TILE_W + lane_x + PART_W * k; };
+  auto px = [&](int k) { return x0 + static_cast<float>(lane_x + PART_W * k); };
 
-  // per-pixel state of rows ry0 .. ry0+3 in column cx0 + lane
-  float log_t_final[SUB_H], suffix[SUB_H], a_psi[SUB_H], gt_term[SUB_H], gc[SUB_H][4];
+  // per-pixel state of the lane's pixel in each part; pass 1 sums its span's
+  // L in `suffix`, pass 2 its P in `a_psi`, both from 0
+  float log_t_final[N_PART], suffix[N_PART], a_psi[N_PART], gt_term[N_PART], gc[N_PART][4];
   const float* gp = g_planes + static_cast<size_t>(seg) * 8 * N_PIX;
   const float* lt = lt_final + static_cast<size_t>(seg) * N_PIX;
+  const size_t item_px = static_cast<size_t>(item) * N_PIX;
 #pragma unroll
-  for (int r = 0; r < SUB_H; ++r) {
-    const int p = (ry0 + r) * TILE_W + cx0 + lane;
-    log_t_final[r] = lt[p];
+  for (int r = 0; r < N_PART; ++r) {
+    const int p = pixel(r);
+    suffix[r] = (PASS > 1 && it.s > 0) ? lsum[item_px + p] : 0.0f;
+    a_psi[r] = (GRADS && it.s > 0) ? psum[item_px + p] : 0.0f;
+    if (PASS > 1) {
+      log_t_final[r] = lt[p];
 #pragma unroll
-    for (int c = 0; c < 4; ++c) gc[r][c] = gp[c * N_PIX + p];
-    gt_term[r] = gp[4 * N_PIX + p] * expf(log_t_final[r]);
-    suffix[r] = 0.0f;
-    a_psi[r] = 0.0f;
+      for (int c = 0; c < 4; ++c) gc[r][c] = gp[c * N_PIX + p];
+    }
+    if (GRADS) gt_term[r] = gp[4 * N_PIX + p] * expf(log_t_final[r]);
   }
 
   // TILE_OWNED: thread tid's lane of walked block j in the tile's output
@@ -159,7 +272,7 @@ composite_bwd_kernel(Src src, const int* __restrict__ starts, const int* __restr
     return out + (static_cast<size_t>(view) * n_out + obase[seg] + j) * ROWS * CHUNK + tid;
   };
 
-  for (int j = n_walk - 1; j >= 0; --j) {
+  for (int j = it.j_hi; j >= it.j_lo; --j) {
     const int idx = (blk0 + j) * CHUNK + tid;
     const int g = (tid < CHUNK && idx >= start && idx < start + count) ? src.key(view, idx) : -1;
     __syncthreads();  // the previous block's shared-memory reads are done
@@ -187,7 +300,7 @@ composite_bwd_kernel(Src src, const int* __restrict__ starts, const int* __restr
         s_attr[4 * q + 2][tid] = row[q].z;
         s_attr[4 * q + 3][tid] = row[q].w;
       }
-      if (!TILE_OWNED) {
+      if (GRADS && !TILE_OWNED) {
 #pragma unroll
         for (int i = 0; i < N_GRAD; ++i) s_grad[i][tid] = 0.0f;
       }
@@ -195,25 +308,33 @@ composite_bwd_kernel(Src src, const int* __restrict__ starts, const int* __restr
     __syncthreads();
 
     // steps 1-3: the block's per-pixel sum of log1p(-alpha), lanes in order
-    float sum_lg[SUB_H] = {0.0f, 0.0f, 0.0f, 0.0f};
+    float sum_lg[N_PART] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll 1
     for (int q = 0; q < CHUNK; q += 32) {
       unsigned todo = __ballot_sync(FULL, (s_mask[q + lane] & my_bit) != 0u);
       while (todo != 0u) {
         const int l = q + __ffs(todo) - 1;
         todo &= todo - 1u;
+        int ka, kb;
+        parts_of(s_attr, l, x0 + static_cast<float>(cx0), ka, kb);
 #pragma unroll
-        for (int r = 0; r < SUB_H; ++r) {
+        for (int r = 0; r < N_PART; ++r) {
+          if (r < ka || r > kb) continue;  // uniform over the warp
           float dx, dy;
-          const float alpha = pair_alpha(s_attr, l, px, y0 + static_cast<float>(ry0 + r), dx, dy);
+          const float alpha = pair_alpha(s_attr, l, px(r), py, dx, dy);
           if (alpha > 0.0f) sum_lg[r] = sum_lg[r] + log1pf(-alpha);
         }
       }
     }
-    float log_t_end[SUB_H];
+    if (PASS == 1) {
+#pragma unroll
+      for (int r = 0; r < N_PART; ++r) suffix[r] = suffix[r] + sum_lg[r];
+      continue;
+    }
+    float log_t_end[N_PART];
     bool live = false;
 #pragma unroll
-    for (int r = 0; r < SUB_H; ++r) {
+    for (int r = 0; r < N_PART; ++r) {
       log_t_end[r] = log_t_final[r] - suffix[r];
       const float log_t_start = log_t_end[r] - sum_lg[r];
       suffix[r] = suffix[r] + sum_lg[r];
@@ -221,7 +342,7 @@ composite_bwd_kernel(Src src, const int* __restrict__ starts, const int* __restr
     }
     // step 4's gate: the max over the tile's pixels of log_t_start
     if (!__syncthreads_or(live)) {
-      if (TILE_OWNED && tid < CHUNK) {
+      if (GRADS && TILE_OWNED && tid < CHUNK) {
         float* dst = out_lane(j);
 #pragma unroll
         for (int r = 0; r < ROWS; ++r) dst[r * CHUNK] = 0.0f;
@@ -230,8 +351,8 @@ composite_bwd_kernel(Src src, const int* __restrict__ starts, const int* __restr
     }
 
     // step 4: lanes back to front
-    float lg_suffix[SUB_H] = {0.0f, 0.0f, 0.0f, 0.0f};
-    float psi_suffix[SUB_H] = {0.0f, 0.0f, 0.0f, 0.0f};
+    float lg_suffix[N_PART] = {0.0f, 0.0f, 0.0f, 0.0f};
+    float psi_suffix[N_PART] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll 1
     for (int q = CHUNK - 32; q >= 0; q -= 32) {
       unsigned todo = __ballot_sync(FULL, (s_mask[q + lane] & my_bit) != 0u);
@@ -244,10 +365,13 @@ composite_bwd_kernel(Src src, const int* __restrict__ starts, const int* __restr
 #pragma unroll
         for (int i = 0; i < N_GRAD; ++i) acc[i] = 0.0f;
         bool any = false;
+        int ka, kb;
+        parts_of(s_attr, l, x0 + static_cast<float>(cx0), ka, kb);
 #pragma unroll
-        for (int r = 0; r < SUB_H; ++r) {
+        for (int r = 0; r < N_PART; ++r) {
+          if (r < ka || r > kb) continue;  // uniform over the warp
           float dx, dy;
-          const float alpha = pair_alpha(s_attr, l, px, y0 + static_cast<float>(ry0 + r), dx, dy);
+          const float alpha = pair_alpha(s_attr, l, px(r), py, dx, dy);
           if (!(alpha > 0.0f)) continue;
           any = true;
           lg_suffix[r] = lg_suffix[r] + log1pf(-alpha);
@@ -257,22 +381,25 @@ composite_bwd_kernel(Src src, const int* __restrict__ starts, const int* __restr
           const float gamma = gc[r][0] * cr + gc[r][1] * cg + gc[r][2] * cb + gc[r][3] * cd;
           const float w = contrib ? alpha * t_i : 0.0f;
           const float psi = w * gamma;
-          const float g_alpha =
-              contrib ? t_i * gamma - (psi_suffix[r] + a_psi[r] + gt_term[r]) / one_m : 0.0f;
+          if (GRADS) {
+            const float g_alpha =
+                contrib ? t_i * gamma - (psi_suffix[r] + a_psi[r] + gt_term[r]) / one_m : 0.0f;
+            // step 5's per-pixel terms
+            const float g_p = g_alpha * alpha;
+            acc[0] = acc[0] + g_p;
+            acc[1] = acc[1] + g_p * dx;
+            acc[2] = acc[2] + g_p * dy;
+            acc[3] = acc[3] + g_p * dx * dx;
+            acc[4] = acc[4] + g_p * dy * dy;
+            acc[5] = acc[5] + g_p * dx * dy;
+            acc[6] = acc[6] + w * gc[r][0];
+            acc[7] = acc[7] + w * gc[r][1];
+            acc[8] = acc[8] + w * gc[r][2];
+            acc[9] = acc[9] + w * gc[r][3];
+          }
           psi_suffix[r] = psi_suffix[r] + psi;
-          // step 5's per-pixel terms
-          const float g_p = g_alpha * alpha;
-          acc[0] = acc[0] + g_p;
-          acc[1] = acc[1] + g_p * dx;
-          acc[2] = acc[2] + g_p * dy;
-          acc[3] = acc[3] + g_p * dx * dx;
-          acc[4] = acc[4] + g_p * dy * dy;
-          acc[5] = acc[5] + g_p * dx * dy;
-          acc[6] = acc[6] + w * gc[r][0];
-          acc[7] = acc[7] + w * gc[r][1];
-          acc[8] = acc[8] + w * gc[r][2];
-          acc[9] = acc[9] + w * gc[r][3];
         }
+        if (!GRADS) continue;
         const bool reduce = __any_sync(FULL, any);
         if (reduce) {
 #pragma unroll
@@ -296,7 +423,8 @@ composite_bwd_kernel(Src src, const int* __restrict__ starts, const int* __restr
       }
     }
 #pragma unroll
-    for (int r = 0; r < SUB_H; ++r) a_psi[r] = a_psi[r] + psi_suffix[r];
+    for (int r = 0; r < N_PART; ++r) a_psi[r] = a_psi[r] + psi_suffix[r];
+    if (!GRADS) continue;
     __syncthreads();
 
     // step 5: one gradient row per instance of the segment
@@ -352,32 +480,88 @@ composite_bwd_kernel(Src src, const int* __restrict__ starts, const int* __restr
       }
     }
   }
+
+  if (PASS == 1) {
+#pragma unroll
+    for (int r = 0; r < N_PART; ++r) lsum[item_px + pixel(r)] = suffix[r];
+  } else if (PASS == 2) {
+#pragma unroll
+    for (int r = 0; r < N_PART; ++r) psum[item_px + pixel(r)] = a_psi[r];
+  }
+}
+
+// Per (tile, pixel) of a tile with several spans: x[item] (one span's own
+// sum, span 0 first) becomes the sum of the spans before it in walk order,
+// added span 0 first; span 0's own row is left as it was (its start is 0).
+__global__ void __launch_bounds__(SCAN_THREADS)
+span_scan_kernel(const int* __restrict__ item_end, const int* __restrict__ nproc, int span,
+                 const int* __restrict__ heavy, float* __restrict__ x) {
+  const int seg = blockIdx.x;
+  const int p = blockIdx.y * SCAN_THREADS + threadIdx.x;
+  const int n_spans = n_spans_of(nproc[seg], span, *heavy);
+  if (n_spans < 2) return;
+  float* row = x + static_cast<size_t>(item_end[seg] - n_spans) * N_PIX + p;
+  float acc = 0.0f;
+  float v = row[0];
+  for (int s = 1; s < n_spans; ++s) {
+    acc = acc + v;
+    // the lowest span stored nothing: its row only receives its start
+    const float next = s + 1 < n_spans ? row[static_cast<size_t>(s) * N_PIX] : 0.0f;
+    row[static_cast<size_t>(s) * N_PIX] = acc;
+    v = next;
+  }
 }
 
 // starts/counts/nproc [V, T] i32, g_planes [V, T, 8, 2048] f32 (rows 0-4
-// read), lt_final [V, T, 2048] f32; obase and out as for the kernel. Launches
-// on `stream`; returns the first CUDA error, or cudaGetLastError() after the
-// launch.
+// read), lt_final [V, T, 2048] f32, heavy [1] i32 (tiles walking more
+// blocks are cut into spans of `span`, the others walk whole), item_end
+// [V T] i32 (the inclusive cumsum of each tile's spans), lsum/psum
+// [n_items, 2048] f32 scratch with n_items >= item_end[-1] (the grid);
+// obase and out as for the kernel.
+// Launches the three passes and two scans on `stream`; returns the first
+// CUDA error, or cudaGetLastError() after the launches.
 template <class Src, bool TILE_OWNED>
 int launch_composite_bwd(Src src, const void* starts, const void* counts, const void* g_planes,
-                         const void* lt_final, const void* nproc, const void* obase, void* out,
-                         int n_out, int n_views, int nty, int ntx, float w_img, int wrap_x,
-                         void* stream) {
+                         const void* lt_final, const void* nproc, const void* obase,
+                         const void* item_end, int span, const void* heavy, int n_items,
+                         void* lsum, void* psum,
+                         void* out, int n_out, int n_views, int nty, int ntx, float w_img,
+                         int wrap_x, void* stream) {
   const int n_tiles = nty * ntx;
-  if (n_views == 0 || n_tiles == 0) return 0;
-  const auto kernel = composite_bwd_kernel<Src, TILE_OWNED>;
+  const int n_segs = n_views * n_tiles;
+  if (n_segs == 0 || n_items == 0) return 0;
+  if (span < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const auto pass3 = composite_bwd_kernel<Src, TILE_OWNED, 3>;
   const int dyn = TILE_OWNED ? BWD_SLOT_BYTES : 0;
   if (TILE_OWNED) {
     const cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
+        cudaFuncSetAttribute(pass3, cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const dim3 grid(n_tiles, n_views);
-  kernel<<<grid, BWD_THREADS, dyn, static_cast<cudaStream_t>(stream)>>>(
-      src, static_cast<const int*>(starts), static_cast<const int*>(counts),
-      static_cast<const float*>(g_planes), static_cast<const float*>(lt_final),
-      static_cast<const int*>(nproc), static_cast<const int*>(obase), static_cast<float*>(out),
-      n_out, n_tiles, ntx, w_img, wrap_x);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const auto* st_i = static_cast<const int*>(starts);
+  const auto* co_i = static_cast<const int*>(counts);
+  const auto* gp_f = static_cast<const float*>(g_planes);
+  const auto* lt_f = static_cast<const float*>(lt_final);
+  const auto* np_i = static_cast<const int*>(nproc);
+  const auto* ob_i = static_cast<const int*>(obase);
+  const auto* ie_i = static_cast<const int*>(item_end);
+  const auto* hv_i = static_cast<const int*>(heavy);
+  auto* ls_f = static_cast<float*>(lsum);
+  auto* ps_f = static_cast<float*>(psum);
+  auto* out_f = static_cast<float*>(out);
+  const dim3 scan_grid(n_segs, N_PIX / SCAN_THREADS);
+  composite_bwd_kernel<Src, TILE_OWNED, 1><<<n_items, BWD_THREADS, 0, st>>>(
+      src, st_i, co_i, gp_f, lt_f, np_i, ob_i, ie_i, span, hv_i, ls_f, ps_f, out_f, n_out, n_segs,
+      n_tiles, ntx, w_img, wrap_x);
+  span_scan_kernel<<<scan_grid, SCAN_THREADS, 0, st>>>(ie_i, np_i, span, hv_i, ls_f);
+  composite_bwd_kernel<Src, TILE_OWNED, 2><<<n_items, BWD_THREADS, 0, st>>>(
+      src, st_i, co_i, gp_f, lt_f, np_i, ob_i, ie_i, span, hv_i, ls_f, ps_f, out_f, n_out, n_segs,
+      n_tiles, ntx, w_img, wrap_x);
+  span_scan_kernel<<<scan_grid, SCAN_THREADS, 0, st>>>(ie_i, np_i, span, hv_i, ps_f);
+  pass3<<<n_items, BWD_THREADS, dyn, st>>>(src, st_i, co_i, gp_f, lt_f, np_i, ob_i, ie_i, span,
+                                           hv_i, ls_f, ps_f, out_f, n_out, n_segs, n_tiles, ntx,
+                                           w_img, wrap_x);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -18,6 +18,10 @@ output [V, T, 8, 2048] f32 per tile: r g b depth T logT n_processed 0. The
 backwards read the cotangents of planes 0-4; the fused one returns g_attrs
 [V, N, 16] (rows 10-15 zero), the unfused one tile-owned gradient blocks
 dout [V, K/128 + T, 16, 128] that `scatter_out_blocks` adds into g_attrs.
+The backwards cut each tile's walk into spans of `span` blocks (BWD_SPAN by
+default, None for one span a tile) that the kernels run at once; the span
+sets the order of the sums across blocks, and the plain versions take the
+same order.
 """
 
 from __future__ import annotations
@@ -40,6 +44,20 @@ _LOG_T_EPS = -9.21034  # log(1e-4)
 # tiles per step of the plain versions: bounds their [tiles, 2048, 128]
 # temporaries to ~270 MB each
 _PLAIN_TILES_PER_STEP = 256
+# blocks of a tile's walk one work item of the backward kernels takes
+# (csrc/composite_bwd.cuh), from the sweep of chip_smoke.py's phase 4: 4-64
+# are alike on the train steps' Gaussians, and a tile of at most 16 blocks
+# (every tile of the flagship scene) is one span
+BWD_SPAN = 16
+# the C entry points' span for one span a tile (span=None): beyond any walk
+_ONE_SPAN = 1 << 30
+# only a tile walking more than a call's walked blocks over BWD_SPLIT_SLOTS
+# is cut into spans: a lighter one walks whole, and pays no extra passes.
+# Per H100 SM (132), four: a whole walk takes ~2.5x a block's share of an SM
+# per block (two blocks share one), so near a call's blocks over 330 one
+# tile alone outlasts the call; 4 x 132 leaves room for the cut tiles'
+# extra passes (the sweep of 132, 264 and 528 in PERF.md)
+BWD_SPLIT_SLOTS = 4 * 132
 
 KERNEL_NAME = "composite_forward_fused"
 BWD_KERNEL_NAME = "composite_backward_fused"
@@ -47,8 +65,8 @@ UNFUSED_KERNEL_NAME = "composite_forward_unfused"
 UNFUSED_BWD_KERNEL_NAME = "composite_backward_unfused"
 # calls that launch a CUDA kernel, one per call: a forward call is the
 # forward kernel's two grid passes (csrc/composite_fwd*.cu), a backward call
-# one grid (csrc/composite_bwd*.cu), each over all its views. The plain
-# versions never count.
+# the backward kernel's three passes and two scans (csrc/composite_bwd*.cu),
+# each over all its views. The plain versions never count.
 launch_counts = {KERNEL_NAME: 0, BWD_KERNEL_NAME: 0, UNFUSED_KERNEL_NAME: 0,
                  UNFUSED_BWD_KERNEL_NAME: 0}
 
@@ -131,6 +149,40 @@ def _check_backward(starts, g_planes, lt_final, nproc):
         raise ValueError(f"inputs on several devices: {devs}")
 
 
+def _span(span: int | None) -> int:
+    if span is None:
+        return _ONE_SPAN
+    if isinstance(span, bool) or not isinstance(span, int) or not 1 <= span < _ONE_SPAN:
+        raise ValueError(f"span must be None or an int in [1, {_ONE_SPAN}), got {span!r}")
+    return span
+
+
+def _tile_spans(nproc, span: int | None):
+    """Per (view, tile) the blocks walked n [V T] and the span length
+    [V T] (int64), and heavy [1] int32: a tile walking more than heavy
+    blocks takes spans of `span`, any other one span, its whole walk."""
+    s = _span(span)
+    n = nproc.reshape(-1).to(torch.int64)
+    heavy = n.sum() // BWD_SPLIT_SLOTS
+    length = torch.where(n > heavy, torch.full_like(n, s), n.clamp(min=1))
+    return n, length, heavy.reshape(1).to(torch.int32)
+
+
+def span_item_end(nproc, span: int | None):
+    """(item_end [V T] int32, heavy [1] int32): the backward's work items
+    numbered tile by tile, the inclusive cumsum over (view, tile) of each
+    tile's spans (_tile_spans), and the threshold the kernel reads."""
+    n, length, heavy = _tile_spans(nproc, span)
+    return torch.cumsum((n + length - 1) // length, 0).to(torch.int32), heavy
+
+
+def span_items_bound(v: int, t: int, nblk: int, span: int | None) -> int:
+    """The backward's grid, from shapes alone: V T + ceil(V NBLK / span) work
+    items, never fewer than the items of span_item_end, since a view's
+    tiles walk at most NBLK + T blocks between them."""
+    return v * t + -(-v * nblk // _span(span))
+
+
 def composite_forward(attrs, gidx, starts, counts, nty: int, ntx: int,
                       w_img: float, wrap_x: bool) -> torch.Tensor:
     """Composite every (view, tile); returns the planes [V, T, 8, 2048]."""
@@ -163,32 +215,42 @@ def composite_forward(attrs, gidx, starts, counts, nty: int, ntx: int,
 
 
 def composite_backward(attrs, gidx, starts, counts, g_planes, lt_final, nproc,
-                       nty: int, ntx: int, w_img: float, wrap_x: bool) -> torch.Tensor:
+                       nty: int, ntx: int, w_img: float, wrap_x: bool,
+                       span: int | None = BWD_SPAN) -> torch.Tensor:
     """Gradient of the planes' rows 0-4 with respect to attrs: g_planes
     [V, T, 8, 2048] is the planes' cotangent, lt_final [V, T, 2048] and
     nproc [V, T] int32 are the forward's logT and n_processed planes.
-    Returns g_attrs [V, N, 16]."""
+    Returns g_attrs [V, N, 16]. `span`: blocks of a tile's walk one work item
+    takes (None: the whole walk), which sets the order of the sums across
+    blocks."""
     _check(attrs, gidx, starts, counts, nty, ntx)
     _check_backward(starts, g_planes, lt_final, nproc)
+    s = _span(span)
     if not attrs.is_cuda:
         return composite_backward_plain(attrs, gidx, starts, counts, g_planes, lt_final, nproc,
-                                        nty, ntx, w_img, wrap_x)
+                                        nty, ntx, w_img, wrap_x, span=span)
     from .build import load
 
     fn = load("composite_bwd").composite_bwd_fused
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     attrs, gidx = attrs.contiguous(), gidx.contiguous()
     starts, counts = starts.contiguous(), counts.contiguous()
     g_planes, lt_final, nproc = g_planes.contiguous(), lt_final.contiguous(), nproc.contiguous()
     v, n, _ = attrs.shape
+    item_end, heavy = span_item_end(nproc, span)
+    n_items = span_items_bound(v, nty * ntx, gidx.shape[1] // CHUNK, span)
+    # each span's sums of log1p(-alpha) and psi, then their starting states
+    lsum = torch.empty((n_items, N_PIX), dtype=torch.float32, device=attrs.device)
+    psum = torch.empty_like(lsum)
     g_attrs = torch.zeros_like(attrs)
     stream = torch.cuda.current_stream(attrs.device).cuda_stream
     with torch.cuda.device(attrs.device):
         err = fn(attrs.data_ptr(), gidx.data_ptr(), starts.data_ptr(), counts.data_ptr(),
-                 g_planes.data_ptr(), lt_final.data_ptr(), nproc.data_ptr(), g_attrs.data_ptr(),
-                 v, n, gidx.shape[1], nty, ntx, float(w_img), int(bool(wrap_x)), stream)
+                 g_planes.data_ptr(), lt_final.data_ptr(), nproc.data_ptr(), heavy.data_ptr(),
+                 item_end.data_ptr(), lsum.data_ptr(), psum.data_ptr(), g_attrs.data_ptr(), v, n,
+                 gidx.shape[1], nty, ntx, s, n_items, float(w_img), int(bool(wrap_x)), stream)
     if err != 0:
         raise RuntimeError(f"{BWD_KERNEL_NAME} launch failed: cudaError {err}")
     launch_counts[BWD_KERNEL_NAME] += 1
@@ -246,34 +308,42 @@ def composite_forward_unfused(inst, starts, counts, nty: int, ntx: int,
 
 
 def composite_backward_unfused(inst, starts, counts, g_planes, lt_final, nproc,
-                               nty: int, ntx: int, w_img: float, wrap_x: bool) -> torch.Tensor:
+                               nty: int, ntx: int, w_img: float, wrap_x: bool,
+                               span: int | None = BWD_SPAN) -> torch.Tensor:
     """The unfused backward: tile-owned gradient blocks dout
     [V, K/128 + T, 16, 128], where tile t's walked block j (j < nproc[t])
     is out-block obase[t] + j (out_block_layout), holding rows 0-9 of its
     instances' gradients (zero outside the tile's segment and in blocks that
     fail the tile-wide gate) and zero rows 10-15. Other out-blocks are not
-    written: read them only through scatter_out_blocks, which masks them."""
+    written: read them only through scatter_out_blocks, which masks them.
+    `span` as for composite_backward."""
     _check_inst(inst, starts, counts, nty, ntx)
     _check_backward(starts, g_planes, lt_final, nproc)
+    s = _span(span)
     if not inst.is_cuda:
         return composite_backward_unfused_plain(inst, starts, counts, g_planes, lt_final, nproc,
-                                                nty, ntx, w_img, wrap_x)
+                                                nty, ntx, w_img, wrap_x, span=span)
     from .build import load
 
     fn = load("composite_bwd_unfused").composite_bwd_unfused
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     inst, starts, counts = inst.contiguous(), starts.contiguous(), counts.contiguous()
     g_planes, lt_final, nproc = g_planes.contiguous(), lt_final.contiguous(), nproc.contiguous()
     v, nblk = inst.shape[:2]
     obase = out_block_layout(starts, counts)
+    item_end, heavy = span_item_end(nproc, span)
+    n_items = span_items_bound(v, nty * ntx, nblk, span)
+    lsum = torch.empty((n_items, N_PIX), dtype=torch.float32, device=inst.device)
+    psum = torch.empty_like(lsum)
     dout = torch.empty((v, nblk + nty * ntx, ROWS, CHUNK), dtype=torch.float32, device=inst.device)
     stream = torch.cuda.current_stream(inst.device).cuda_stream
     with torch.cuda.device(inst.device):
         err = fn(inst.data_ptr(), starts.data_ptr(), counts.data_ptr(), g_planes.data_ptr(),
-                 lt_final.data_ptr(), nproc.data_ptr(), obase.data_ptr(), dout.data_ptr(),
-                 v, nblk, nty, ntx, float(w_img), int(bool(wrap_x)), stream)
+                 lt_final.data_ptr(), nproc.data_ptr(), obase.data_ptr(), heavy.data_ptr(),
+                 item_end.data_ptr(), lsum.data_ptr(), psum.data_ptr(), dout.data_ptr(), v, nblk,
+                 nty, ntx, s, n_items, float(w_img), int(bool(wrap_x)), stream)
     if err != 0:
         raise RuntimeError(f"{UNFUSED_BWD_KERNEL_NAME} launch failed: cudaError {err}")
     launch_counts[UNFUSED_BWD_KERNEL_NAME] += 1
@@ -369,11 +439,19 @@ class _Walk:
         rad_x, rad_y = data[..., 10][:, None, :], data[..., 11][:, None, :]
         dx = self.px[live][:, :, None] - u[:, None, :]  # [L, 2048, 128]
         dy = self.py[live][:, :, None] - vv
-        power = -0.5 * (a * dx * dx + c * dy * dy) - b * dx * dy
-        alpha = o * torch.exp(power)
-        gate = ((dx.abs() <= rad_x) & (dy.abs() <= rad_y) & (power > _NEG_CUTOFF)
-                & (power <= 0.0) & (alpha >= _ALPHA_MIN))
-        alpha = torch.where(gate, torch.clamp(alpha, max=0.99), torch.zeros_like(alpha))
+        # the rest only for the pairs inside the radius box, a few in a hundred
+        box = ((dx.abs() <= rad_x) & (dy.abs() <= rad_y)).nonzero(as_tuple=True)
+        el, lane = box[0], box[2]
+        bx, by = dx[box], dy[box]
+        power = (-0.5 * (a[el, 0, lane] * bx * bx + c[el, 0, lane] * by * by)
+                 - b[el, 0, lane] * bx * by)
+        alpha_box = o[el, 0, lane] * torch.exp(power)
+        gate_box = (power > _NEG_CUTOFF) & (power <= 0.0) & (alpha_box >= _ALPHA_MIN)
+        gate = torch.zeros_like(dx, dtype=torch.bool)
+        gate[box] = gate_box
+        alpha = torch.zeros_like(dx)
+        alpha[box] = torch.where(gate_box, torch.clamp(alpha_box, max=0.99),
+                                 torch.zeros_like(alpha_box))
         return g, inseg, data, alpha, dx, dy, gate
 
 
@@ -419,17 +497,27 @@ def _forward_walk(walk: _Walk, stats: dict | None) -> torch.Tensor:
             if stats is not None:
                 stats["pairs_alive"] = stats.get("pairs_alive", 0) + int(gate.sum())
             del dx, dy, gate
+            # lanes first, each a contiguous [L, 2048] slice
+            alpha = alpha.permute(2, 0, 1).contiguous()
             lg = torch.log1p(-alpha)
-            cd = data[..., 6:10]  # [L, 128, 4]
+            cd = data[..., 6:10].transpose(0, 1)  # [128, L, 4]
             t_blk = tacc[live]
-            a_blk = acc[live]
+            # each lane's exclusive prefix of log1p(-alpha), summed in lane order
+            prefix = torch.empty_like(lg)
             e = torch.zeros_like(t_blk)
             for lane in range(CHUNK):
-                al = alpha[:, :, lane]
-                t_i = torch.exp(t_blk + e)
-                w = torch.where(t_i * (1.0 - al) >= _T_EPS, al * t_i, torch.zeros_like(al))
-                a_blk = a_blk + w[..., None] * cd[:, None, lane, :]
-                e = e + lg[:, :, lane]
+                prefix[lane] = e
+                e = e + lg[lane]
+            # w is 0 wherever alpha is: the rest only where it is not
+            nz = (alpha > 0.0).nonzero(as_tuple=True)
+            al = alpha[nz]
+            t_i = torch.exp(t_blk[nz[1:]] + prefix[nz])
+            w = torch.zeros_like(alpha)
+            w[nz] = torch.where(t_i * (1.0 - al) >= _T_EPS, al * t_i, torch.zeros_like(al))
+            del prefix, t_i, al
+            a_blk = acc[live]
+            for lane in range(CHUNK):
+                a_blk = a_blk + w[lane][..., None] * cd[lane][:, None, :]
             tacc[live] = t_blk + e
             acc[live] = a_blk
 
@@ -448,15 +536,17 @@ def _suffix_sum(x: torch.Tensor) -> torch.Tensor:
 
 def composite_backward_plain(attrs, gidx, starts, counts, g_planes, lt_final, nproc,
                              nty: int, ntx: int, w_img: float, wrap_x: bool,
-                             stats: dict | None = None) -> torch.Tensor:
+                             stats: dict | None = None,
+                             span: int | None = BWD_SPAN) -> torch.Tensor:
     """The backward kernel's function in PyTorch ops, same output.
 
     Vectorised over (view, tile) pairs, it walks each pair's processed blocks
     last first with the kernel's telescoped logT and tile-wide gate. Inside a
-    block it sums log1p(-alpha) over the lanes in order, as the kernel does,
-    so the gate decides alike; the back-to-front walk is taken as suffix sums
-    over the lanes, which round differently from the kernel's running sums,
-    as do the sums over a tile's pixels. The derivative of alpha is written
+    block it sums log1p(-alpha) over the lanes in order, and across blocks in
+    the kernel's order for spans of `span` blocks (None: one span a tile), as
+    the kernel does, so the gate decides alike; the back-to-front walk is
+    taken as suffix sums over the lanes, which round differently from the
+    kernel's running sums, as do the sums over a tile's pixels. The derivative of alpha is written
     out (d alpha / d power = alpha, also at the 0.99 cap, as the Pallas
     kernel takes it), not autograd of the forward. `stats`, if given,
     receives "blocks_walked", "blocks_gated", "pairs_walked" (gate-passing
@@ -471,13 +561,14 @@ def composite_backward_plain(attrs, gidx, starts, counts, g_planes, lt_final, np
         flat = (view * n + gidx[view, g].long()).reshape(-1)
         g_flat[:, :N_GRAD].index_add_(0, flat, grad.reshape(-1, N_GRAD))
 
-    _backward_walk(walk, g_planes, lt_final, nproc, None, add, stats)
+    _backward_walk(walk, g_planes, lt_final, nproc, None, add, stats, span)
     return g_flat.reshape(v, n, ROWS)
 
 
 def composite_backward_unfused_plain(inst, starts, counts, g_planes, lt_final, nproc,
                                      nty: int, ntx: int, w_img: float, wrap_x: bool,
-                                     stats: dict | None = None) -> torch.Tensor:
+                                     stats: dict | None = None,
+                                     span: int | None = BWD_SPAN) -> torch.Tensor:
     """The unfused backward kernel's function in PyTorch ops: the walk of
     composite_backward_plain over rows read from inst, each walked block's
     gradient rows written into its tile-owned out-block (zeros where the
@@ -495,27 +586,42 @@ def composite_backward_unfused_plain(inst, starts, counts, g_planes, lt_final, n
     def put(sel, j, g, grad):
         dout[walk.view_of[sel], obase[sel] + j, :N_GRAD] = grad.transpose(1, 2)
 
-    _backward_walk(walk, g_planes, lt_final, nproc, zero, put, stats)
+    _backward_walk(walk, g_planes, lt_final, nproc, zero, put, stats, span)
     return dout
 
 
 def _backward_walk(walk: _Walk, g_planes, lt_final, nproc, on_walked, on_gated,
-                   stats: dict | None) -> None:
+                   stats: dict | None, span: int | None) -> None:
     """The plain backward's walk: on_walked(pairs, j), if given, for every
     walked block; on_gated(pairs, j, instance indices [S, 128], grad
-    [S, 128, 10] zero outside the segment) for those that pass the gate."""
+    [S, 128, 10] zero outside the segment) for those that pass the gate.
+
+    The sums across blocks take the kernel's association for spans of
+    `span` blocks: a tile cut into spans (_tile_spans) has its walk step rj
+    in span rj // span, so all spans start at once; a span starts from the
+    sums of the spans walked before it, added span by span (`start_*`), and
+    sums its own blocks from 0 (`own_*`) for the spans after it."""
     dev = walk.lanes.device
     vt = walk.vt
-    nproc_f = nproc.reshape(vt).long()
+    s = _span(span)
+    nproc_f, _, heavy = _tile_spans(nproc, span)
+    cut = nproc_f > heavy
     planes = g_planes.reshape(vt, 8, N_PIX)
     g_rgbd = planes[:, 0:4].transpose(1, 2)  # [vt, 2048, 4]
     lt = lt_final.reshape(vt, N_PIX)
     gt_term = planes[:, 4] * torch.exp(lt)
-    suffix = torch.zeros(vt, N_PIX, dtype=torch.float32, device=dev)
-    a_psi = torch.zeros(vt, N_PIX, dtype=torch.float32, device=dev)
+    suffix, a_psi, own_lg, own_psi, start_lg, start_psi = (
+        torch.zeros(vt, N_PIX, dtype=torch.float32, device=dev) for _ in range(6))
     st = {"blocks_walked": 0, "blocks_gated": 0, "pairs_walked": 0, "pairs_gated": 0,
           "rows_written": 0}
     for rj in range(int(nproc_f.max().item()) if vt else 0):
+        if rj and rj % s == 0:
+            # a new span of each tile cut into spans: its state is the
+            # earlier spans' sums
+            for start, own, run in ((start_lg, own_lg, suffix), (start_psi, own_psi, a_psi)):
+                start[cut] = start[cut] + own[cut]
+                run[cut] = start[cut]
+                own[cut] = 0.0
         for live in (nproc_f > rj).nonzero().squeeze(1).split(_PLAIN_TILES_PER_STEP):
             j = nproc_f[live] - 1 - rj
             g, inseg, data, alpha, dx, dy, gate = walk.block(live, j)
@@ -524,12 +630,15 @@ def _backward_walk(walk: _Walk, g_planes, lt_final, nproc, on_walked, on_gated,
             st["blocks_walked"] += live.numel()
             st["pairs_walked"] += int(gate.sum())
             lg = torch.log1p(-alpha)
+            lg_lanes = lg.permute(2, 0, 1).contiguous()  # each lane a contiguous slice
             sum_lg = torch.zeros(live.numel(), N_PIX, dtype=torch.float32, device=dev)
             for lane in range(CHUNK):
-                sum_lg = sum_lg + lg[:, :, lane]
+                sum_lg = sum_lg + lg_lanes[lane]
+            del lg_lanes
             log_t_end = lt[live] - suffix[live]
             log_t_start = log_t_end - sum_lg
             suffix[live] = suffix[live] + sum_lg
+            own_lg[live] = own_lg[live] + sum_lg
             keep = (log_t_start.max(dim=1).values >= _LOG_T_EPS).nonzero().squeeze(1)
             if keep.numel() == 0:
                 continue
@@ -541,26 +650,36 @@ def _backward_walk(walk: _Walk, g_planes, lt_final, nproc, on_walked, on_gated,
             st["pairs_gated"] += int(gate[keep].sum())
             st["rows_written"] += int(inseg.sum())
             del gate
-            gc = g_rgbd[sel][:, :, None, :]  # [S, 2048, 1, 4]
-            cd = data[:, None, :, 6:10]  # [S, 1, 128, 4]
-            lg_suffix = _suffix_sum(lg)  # inclusive
-            t_i = torch.exp(log_t_end[:, :, None] - lg_suffix)
-            one_m = 1.0 - alpha
+            # every term but the suffix sums is 0 where alpha is: the rest
+            # only where it is not
+            nz = (alpha > 0.0).nonzero(as_tuple=True)
+            al, pix = alpha[nz], nz[:2]
+            gc = g_rgbd[sel][pix]  # [nz, 4]
+            cd = data[nz[0], nz[2], 6:10]  # [nz, 4]
+            t_i = torch.exp(log_t_end[pix] - _suffix_sum(lg)[nz])  # inclusive suffix
+            one_m = 1.0 - al
             contrib = t_i * one_m >= _T_EPS
-            gamma = (gc[..., 0] * cd[..., 0] + gc[..., 1] * cd[..., 1] + gc[..., 2] * cd[..., 2]
-                     + gc[..., 3] * cd[..., 3])
-            zero = torch.zeros_like(alpha)
-            w = torch.where(contrib, alpha * t_i, zero)
-            psi = w * gamma
+            gamma = (gc[:, 0] * cd[:, 0] + gc[:, 1] * cd[:, 1] + gc[:, 2] * cd[:, 2]
+                     + gc[:, 3] * cd[:, 3])
+            zero = torch.zeros_like(al)
+            w = torch.where(contrib, al * t_i, zero)
+            psi = torch.zeros_like(alpha)
+            psi[nz] = w * gamma
             psi_suffix = _suffix_sum(psi)
-            strict = torch.cat([psi_suffix[..., 1:], zero[..., :1]], dim=-1)
-            later = strict + a_psi[sel][:, :, None] + gt_term[sel][:, :, None]
+            block_psi = psi_suffix[..., 0]
+            strict = torch.cat([psi_suffix[..., 1:], torch.zeros_like(psi_suffix[..., :1])], dim=-1)
+            later = strict[nz] + a_psi[sel][pix] + gt_term[sel][pix]
             g_alpha = torch.where(contrib, t_i * gamma - later / one_m, zero)
-            a_psi[sel] = a_psi[sel] + psi_suffix[..., 0]
-            g_p = g_alpha * alpha
-            m = [g_p.sum(1), (g_p * dx).sum(1), (g_p * dy).sum(1), (g_p * dx * dx).sum(1),
-                 (g_p * dy * dy).sum(1), (g_p * dx * dy).sum(1)]
-            m += [(w * gc[..., ch]).sum(1) for ch in range(4)]
+            a_psi[sel] = a_psi[sel] + block_psi
+            own_psi[sel] = own_psi[sel] + block_psi
+            g_p = g_alpha * al
+            bx, by = dx[nz], dy[nz]
+            terms = torch.stack([g_p, g_p * bx, g_p * by, g_p * bx * bx, g_p * by * by,
+                                 g_p * bx * by, w * gc[:, 0], w * gc[:, 1], w * gc[:, 2],
+                                 w * gc[:, 3]], dim=1)
+            m = torch.zeros(sel.numel() * CHUNK, N_GRAD, dtype=torch.float32, device=dev)
+            m.index_add_(0, nz[0] * CHUNK + nz[2], terms)
+            m = m.reshape(sel.numel(), CHUNK, N_GRAD).unbind(-1)
             del t_i, one_m, contrib, gamma, zero, w, psi, psi_suffix, strict, later, g_alpha, g_p
             a, b, c, o = (data[..., r] for r in (2, 3, 4, 5))
             grad = torch.stack([

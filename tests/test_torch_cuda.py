@@ -14,7 +14,9 @@ version: each row of g_attrs is held within 2e-3 of its max|g|, the bar of
 tests/test_pallas_composite.py:66-71, and its error's L2 norm within 1e-5
 of the row's, which a kernel right only on the largest gradients fails.
 The unfused kernels (the path past the fused table budget) are held the
-same way, through the pack, map and scatter around them.
+same way, through the pack, map and scatter around them. The backward
+kernels cut a tile's walk into spans of S blocks; each is held at spans of
+1 and 3 blocks and the default against the plain version at the same span.
 """
 
 import math
@@ -112,11 +114,15 @@ def test_kernel_matches_plain_on_card(cuda_device, kind):
         assert (got[:, 6, 0] < n_blocks).any(), "the per-tile early exit never fired"
 
 
+SPANS = [1, 3, tc.BWD_SPAN]
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("span", SPANS)
 @pytest.mark.parametrize("kind", ["random", "saturating"])
-def test_backward_kernel_matches_plain_on_card(cuda_device, kind):
+def test_backward_kernel_matches_plain_on_card(cuda_device, kind, span):
     """The backward kernel against the plain backward on the same forward
-    planes and a seeded cotangent on planes 0-4."""
+    planes and a seeded cotangent on planes 0-4, both at `span`."""
     args, _ = scene_inputs(kind, cuda_device)
     attrs, gidx, starts, counts, nty, ntx, w_img, wrap_x = args
     planes = tc.composite_forward(*args)
@@ -126,8 +132,8 @@ def test_backward_kernel_matches_plain_on_card(cuda_device, kind):
     bwd = (attrs, gidx, starts, counts, g_planes, planes[:, :, 5].contiguous(),
            planes[:, :, 6, 0].to(torch.int32), nty, ntx, w_img, wrap_x)
     before = tc.launch_counts[tc.BWD_KERNEL_NAME]
-    got = tc.composite_backward(*bwd)
-    ref = tc.composite_backward_plain(*bwd)
+    got = tc.composite_backward(*bwd, span=span)
+    ref = tc.composite_backward_plain(*bwd, span=span)
     assert tc.launch_counts[tc.BWD_KERNEL_NAME] == before + 1
     torch.cuda.synchronize()
     got, ref = got[0].cpu().numpy(), ref[0].cpu().numpy()
@@ -188,12 +194,13 @@ def test_unfused_kernel_matches_plain_on_card(cuda_device, kind):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("span", SPANS)
 @pytest.mark.parametrize("kind", ["random", "saturating"])
-def test_unfused_backward_kernel_matches_plain_on_card(cuda_device, kind):
+def test_unfused_backward_kernel_matches_plain_on_card(cuda_device, kind, span):
     """The unfused backward kernel, map and scatter against the plain
     backward's blocks through the same map and scatter, per row of g_attrs
-    at the bars above; its live out-blocks equal bit for bit from run to
-    run (no atomics in the kernel)."""
+    at the bars above, both at `span`; its live out-blocks equal bit for bit
+    from run to run (no atomics in the kernel)."""
     args, asg = scene_inputs(kind, cuda_device)
     inst, starts, counts, nty, ntx, w_img, wrap_x = unfused_args(args, asg)
     planes = tc.composite_forward_unfused(inst, starts, counts, nty, ntx, w_img, wrap_x)
@@ -204,9 +211,9 @@ def test_unfused_backward_kernel_matches_plain_on_card(cuda_device, kind):
     bwd = (inst, starts, counts, g_planes, planes[:, :, 5].contiguous(), nproc, nty, ntx, w_img,
            wrap_x)
     before = tc.launch_counts[tc.UNFUSED_BWD_KERNEL_NAME]
-    dout = tc.composite_backward_unfused(*bwd)
-    dout2 = tc.composite_backward_unfused(*bwd)
-    ref_dout = tc.composite_backward_unfused_plain(*bwd)
+    dout = tc.composite_backward_unfused(*bwd, span=span)
+    dout2 = tc.composite_backward_unfused(*bwd, span=span)
+    ref_dout = tc.composite_backward_unfused_plain(*bwd, span=span)
     assert tc.launch_counts[tc.UNFUSED_BWD_KERNEL_NAME] == before + 2
     _, live = tc.out_block_map(starts, counts, nproc, dout.shape[1])
     assert torch.equal(dout[live], dout2[live])
@@ -281,3 +288,6 @@ def test_kernel_refuses_bad_inputs():
         tc.composite_backward(*bwd[:5], lt.double(), seg, 1, 2, 256.0, True)
     with pytest.raises(ValueError, match="nproc"):
         tc.composite_backward(*bwd[:6], seg.float(), 1, 2, 256.0, True)
+    for span in (0, -1, 2.0, True):
+        with pytest.raises(ValueError, match="span"):
+            tc.composite_backward(*bwd, 1, 2, 256.0, True, span=span)
