@@ -6,13 +6,17 @@ Phases (any failure ends in a non-zero exit and no result line):
   1. print the card's name and power limit; build every CUDA kernel (one
      nvcc per source, all at once);
   2. hold the forward compositor kernel against its plain PyTorch version at
-     the flagship render shapes (512x1024 ERP, N = 2*512*1024 Gaussians), and
+     the flagship render shapes (512x1024 ERP, N = 2*512*1024 Gaussians), at
+     the default span and at span 1, all 8 planes bit for bit, with the
+     threshold's floor off so that tiles are cut into spans, and
      (2b) the backward kernel against its plain version there, with a seeded
      cotangent, at the default span and at span 1 (every block its own work
      item), the plain version at the same span;
   2c. hold the unfused forward kernel (the path past the fused kernels'
      table budget) against its plain version and against the fused kernel
-     at the 3-view flagship shapes (N = 3*512*1024, one view), and (2d) the
+     at the 3-view flagship shapes (N = 3*512*1024, one view), at both spans,
+     and both forward kernels at span 1 against one span a tile, all bit for
+     bit; (2d) the
      unfused backward kernel, with the block map and scatter, against its
      plain version and against the fused backward there, at both spans; at
      span 1 its blocks equal those of one span a tile bit for bit (both sum
@@ -33,9 +37,12 @@ Phases (any failure ends in a non-zero exit and no result line):
      path's pack and scatter apart, the fused kernels on the 3-view inputs,
      and the serving render stage by stage; both backward kernels at their
      training shapes, on the last step's Gaussians and on the first step's,
-     for each span of SPANS in turns (None: one span a tile, the design
-     before spans), with the blocks each tile walks, the warps' visits per
-     block, and the time with every tile capped at 64 blocks.
+     and both forward kernels on the flagship scene, the serving inputs and
+     the same train steps' Gaussians, for each span of SPANS in turns (None:
+     one span a tile), with the blocks each tile walks (forward: in its
+     segment and processed), the warps' visits per block, the time with
+     every tile capped at 64 blocks, and the blocks the forward's first pass
+     sums past a tile's exit.
 It prints one JSON line of per-kernel numbers, the nvidia-smi line, and as
 its last line {"ok": true, "device": {...}}.
 """
@@ -43,6 +50,7 @@ its last line {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import subprocess
@@ -86,8 +94,8 @@ GRAD_TOL = 2e-3
 # and, per row, |g_kernel - g_plain|_2 / |g_plain|_2: a kernel right only on
 # the few largest gradients fails it, float atomics (~2e-8 of max|g|) do not
 L2_TOL = 1e-5
-# the backward's spans timed in phase 4 (blocks of a tile's walk one work
-# item takes; None: the whole walk)
+# the spans timed in phase 4 (blocks of a heavy tile's segment or walk one
+# work item takes; None: one span a tile)
 SPANS = (1, 4, 16, 64, None)
 
 failures: list[str] = []
@@ -173,29 +181,59 @@ def with_inst(inp):
 
 
 def fwd_calls(inp, unfused=False):
-    """(kernel, plain) forward calls on inp: the fused ones on attrs + gidx,
-    the unfused ones on inp["inst"]."""
+    """(kernel, plain) forward calls on inp, each taking span=... (default
+    FWD_SPAN): the fused ones on attrs + gidx, the unfused ones on
+    inp["inst"]."""
     from splatter360_tpu_torch.ops.cuda import composite as comp
 
     seg = (inp["starts"], inp["counts"], inp["nty"], inp["ntx"], float(W), True)
     if unfused:
-        return (lambda: comp.composite_forward_unfused(inp["inst"], *seg),
+        return (lambda **kw: comp.composite_forward_unfused(inp["inst"], *seg, **kw),
                 lambda **kw: comp.composite_forward_unfused_plain(inp["inst"], *seg, **kw))
-    return (lambda: comp.composite_forward(inp["attrs"], inp["gidx"], *seg),
+    return (lambda **kw: comp.composite_forward(inp["attrs"], inp["gidx"], *seg, **kw),
             lambda **kw: comp.composite_forward_plain(inp["attrs"], inp["gidx"], *seg, **kw))
 
 
-def compare_kernel_plain(inp, label, unfused=False):
-    """Kernel vs plain planes on the same inputs; returns (max_abs_err,
-    stats), stats holding the plain version's work counts and its ms."""
-    from splatter360_tpu_torch.ops.cuda.composite import compose_planes
+@contextlib.contextmanager
+def slots_rule_only():
+    """The forward's threshold without its floor over the mean segment. No
+    tile of the flagship scenes holds FWD_HEAVY_OVER_MEAN times the mean,
+    so the forward cuts none of them; without the floor it cuts every tile
+    past the call's segment blocks over the slots, most of which exit
+    early, and the checks run its spans, scan and combine there."""
+    from splatter360_tpu_torch.ops.cuda import composite as comp
 
+    over_mean = comp.FWD_HEAVY_OVER_MEAN
+    comp.FWD_HEAVY_OVER_MEAN = 0
+    try:
+        yield
+    finally:
+        comp.FWD_HEAVY_OVER_MEAN = over_mean
+
+
+def tiles_cut(inp, span):
+    """The tiles the forward cuts into several spans of `span` on inp."""
+    from splatter360_tpu_torch.ops.cuda import composite as comp
+
+    nseg = comp.segment_blocks(inp["starts"], inp["counts"])
+    _, heavy = comp.span_item_end(nseg, span, comp.FWD_HEAVY_OVER_MEAN)
+    return int(((nseg > heavy) & (nseg > (span or 1 << 30))).sum())
+
+
+def compare_kernel_plain(inp, label, unfused=False, span=None, exact=False):
+    """Kernel vs plain planes on the same inputs, both at `span` (None:
+    FWD_SPAN); with `exact`, all 8 planes must be equal bit for bit.
+    Returns (max_abs_err, stats), stats holding the plain version's work
+    counts and its ms."""
+    from splatter360_tpu_torch.ops.cuda.composite import FWD_SPAN, compose_planes
+
+    span = FWD_SPAN if span is None else span
     kernel, plain = fwd_calls(inp, unfused)
-    pk = kernel()
+    pk = kernel(span=span)
     stats: dict = {}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    pp = plain(stats=stats)
+    pp = plain(stats=stats, span=span)
     torch.cuda.synchronize()
     stats["plain_ms"] = 1e3 * (time.perf_counter() - t0)
     bg = torch.zeros(3, device="cuda")
@@ -208,14 +246,17 @@ def compare_kernel_plain(inp, label, unfused=False):
     diff = (nk != npl).nonzero().tolist()
     per_tile = nk.flatten().sort(descending=True).values
     top = per_tile[: max(1, per_tile.numel() // 100)]
-    print(f"[{label}] views={pk.shape[0]} max|rgb| err={err_rgb:.3e} alpha err={err_a:.3e} "
+    same = torch.equal(pk, pp)
+    print(f"[{label}] span {span} ({tiles_cut(inp, span)} tiles cut): views={pk.shape[0]} "
+          f"max|rgb| err={err_rgb:.3e} alpha err={err_a:.3e} "
           f"depth err={err_d:.3e}; tiles with differing n_processed: {diff[:20]} "
           f"({len(diff)} total); blocks processed {int(nk.sum())} of "
           f"{int(((inp['starts'] + inp['counts'] + 127) // 128 - inp['starts'] // 128).sum())}; "
           f"per tile: max {int(per_tile[0])}, median {int(per_tile.median())}, "
-          f"top 1% of tiles hold {float(top.sum() / per_tile.sum().clamp(min=1)):.1%}")
+          f"top 1% of tiles hold {float(top.sum() / per_tile.sum().clamp(min=1)):.1%}; "
+          f"all 8 planes bit-equal {same}")
     ok = (err_rgb <= ATOL_RGB and err_a <= ATOL_RGB and err_d <= ATOL_DEPTH and not diff
-          and bool(torch.isfinite(pk).all()))
+          and bool(torch.isfinite(pk).all()) and (same or not exact))
     if not ok:
         raise AssertionError(f"[{label}] kernel disagrees with the plain version")
     stats["blocks_processed"] = int(nk.sum())
@@ -396,14 +437,74 @@ def compare_unfused_bwd_plain(inp, label, seed, span):
                 blocks_repeat=blocks_repeat, plain_ms=plain_ms, stats=stats, dout=dk, live=live)
 
 
-def nproc_report(nproc, label):
-    """The backward's walk over (view, tile): blocks a tile walks (the
-    forward's n_processed), their max, p99 and mean, the tiles above 64."""
+def nproc_report(nproc, label, what="walked"):
+    """Blocks per (view, tile) (the backward's walk: the forward's
+    n_processed): their max, p99 and mean, the tiles above 64."""
     flat = nproc.flatten().float()
     rep = dict(max=int(flat.max()), p99=float(torch.quantile(flat, 0.99)), mean=float(flat.mean()),
                above_64=int((flat > 64).sum()), tiles=flat.numel(), blocks=int(flat.sum()))
-    print(f"[{label}] blocks walked per (view, tile): {rep}")
+    print(f"[{label}] blocks {what} per (view, tile): {rep}")
     return rep
+
+
+def capped_counts(inp, cap=64):
+    """counts cut so that no tile's segment spans more than `cap` blocks."""
+    return torch.minimum(inp["counts"], cap * 128 - inp["starts"] % 128)
+
+
+def pass1_blocks(inp, nproc, span):
+    """(blocks, of them past the tile's exit): the segment blocks the
+    forward's first pass sums at `span`, every span of a cut tile but its
+    last, and those at or past the block where the tile stops (nproc)."""
+    from splatter360_tpu_torch.ops.cuda import composite as comp
+
+    nseg = comp.segment_blocks(inp["starts"], inp["counts"])
+    _, heavy = comp.span_item_end(nseg, span, comp.FWD_HEAVY_OVER_MEAN)
+    n = nseg.reshape(-1).long()
+    length = torch.where(n > heavy.long(), torch.full_like(n, span or 1 << 30), n.clamp(min=1))
+    n_spans = (n + length - 1) // length
+    summed = torch.where(n_spans > 1, torch.minimum(n, (n_spans - 1) * length), 0)
+    past = (summed - nproc.reshape(-1).long()).clamp(min=0)
+    return int(summed.sum()), int(past.sum())
+
+
+def fwd_report(inp, label, unfused, iters=3):
+    """The forward on inp: blocks per (view, tile) in the segment and
+    processed, the warps' visits per processed block, the kernel for each
+    span of SPANS in turns, and at one span a tile and the default span with
+    every tile capped at 64 segment blocks (an input to this timing only),
+    with the blocks the first pass sums, past the exit too, and at the
+    default span by the threshold's floor over the mean segment."""
+    from splatter360_tpu_torch.ops.cuda import composite as comp
+    from splatter360_tpu_torch.ops.cuda.composite import FWD_SPAN
+
+    kernel = fwd_calls(inp, unfused)[0]
+    nproc = kernel()[:, :, 6, 0].to(torch.int32)
+    nproc_report(comp.segment_blocks(inp["starts"], inp["counts"]), label, "in the segment")
+    rep = nproc_report(nproc, label, "processed")
+    region_visits(inp, nproc, label)
+    sweep = span_sweep(kernel, (), label, iters)
+    # the threshold's floor over the mean segment, timed at the default span
+    # in turns (0: the slots alone)
+    over_mean = comp.FWD_HEAVY_OVER_MEAN
+    floor_ms = {k: [] for k in (0, 2, 3, 4)}
+    try:
+        for order in (list(floor_ms), list(floor_ms)[::-1]):
+            for k in order:
+                comp.FWD_HEAVY_OVER_MEAN = k
+                floor_ms[k].append(time_cuda(kernel, iters=iters))
+    finally:
+        comp.FWD_HEAVY_OVER_MEAN = over_mean
+    print(f"[{label}] by the threshold's floor over the mean segment at span {FWD_SPAN} (ms, "
+          f"in turns): " + ", ".join(f"{k}: {v[0]:.3f} / {v[1]:.3f}" for k, v in floor_ms.items()))
+    capped = fwd_calls(dict(inp, counts=capped_counts(inp)), unfused)[0]
+    capped_ms = {span: time_cuda(lambda: capped(span=span), iters=iters)
+                 for span in (None, FWD_SPAN)}
+    print(f"[{label}] one span a tile: {1e3 * np.mean(sweep[None]) / max(rep['max'], 1):.3f} us "
+          f"per processed block of the heaviest tile; every tile capped at 64 blocks: "
+          + ", ".join(f"span {k} {v:.3f} ms" for k, v in capped_ms.items())
+          + "; blocks the first pass sums (past the exit): "
+          + ", ".join(f"span {k} %d (%d)" % pass1_blocks(inp, nproc, k) for k in SPANS))
 
 
 def region_visits(inp, nproc, label):
@@ -444,13 +545,13 @@ def region_visits(inp, nproc, label):
           f"{float(ok.sum(1).float().mean()):.1f}")
 
 
-def span_sweep(backward, args, label, iters=5):
-    """backward(*args, span=S) for each S of SPANS, timed in turns: SPANS in
-    order, then reversed. Returns {S: [ms, ms]}."""
+def span_sweep(fn, args, label, iters=5):
+    """fn(*args, span=S) (a kernel's wrapper) for each S of SPANS, timed in
+    turns: SPANS in order, then reversed. Returns {S: [ms, ms]}."""
     ms = {span: [] for span in SPANS}
     for order in (SPANS, SPANS[::-1]):
         for span in order:
-            ms[span].append(time_cuda(lambda: backward(*args, span=span), iters=iters))
+            ms[span].append(time_cuda(lambda: fn(*args, span=span), iters=iters))
     print(f"[{label}] by span (ms, in turns): "
           + ", ".join(f"{k}: {v[0]:.3f} / {v[1]:.3f}" for k, v in ms.items()))
     return ms
@@ -480,13 +581,15 @@ def phase_build():
     print(f"built in {time.perf_counter() - t0:.1f} s")
 
 
-@phase("2. compositor kernel vs plain at flagship shapes")
+@phase("2. compositor kernel vs plain at flagship shapes, default span and span 1")
 def phase_kernel_check(seed):
     means, covs, sh, opac = bench_scene(seed, N_CTX * H * W)
     inp = render_inputs(means, covs, sh, opac, [torch.eye(4, device="cuda")], 0.1)
     print(f"N={means.shape[0]} K={inp['gidx'].shape[1]} dropped={inp['dropped']}")
-    err, stats = compare_kernel_plain(inp, "bench scene, 1 view")
-    return dict(inp=inp, err=err, stats=stats)
+    with slots_rule_only():
+        err, stats = compare_kernel_plain(inp, "bench scene, 1 view", exact=True)
+        err1, _ = compare_kernel_plain(inp, "bench scene, 1 view", span=1, exact=True)
+    return dict(inp=inp, err=max(err, err1), stats=stats)
 
 
 def at_spans(compare, spans):
@@ -505,7 +608,8 @@ def phase_bwd_check(check, seed):
         (BWD_SPAN, 1)))
 
 
-@phase("2c. unfused forward kernel vs plain and vs the fused kernel, 3-view flagship shapes")
+@phase("2c. unfused forward kernel vs plain and vs the fused kernel, 3-view flagship shapes, "
+       "default span and span 1")
 def phase_unfused_check(seed):
     from splatter360_tpu_torch.ops.cuda.composite import use_fused
 
@@ -514,23 +618,44 @@ def phase_unfused_check(seed):
         raise AssertionError(f"N={means.shape[0]} should be past the fused budget")
     inp = with_inst(render_inputs(means, covs, sh, opac, [torch.eye(4, device="cuda")], 0.1))
     print(f"N={means.shape[0]} K={inp['gidx'].shape[1]} dropped={inp['dropped']}")
-    err, stats = compare_kernel_plain(inp, "3-view bench scene, 1 view, unfused", unfused=True)
-    fused_vs_unfused = max_fused_difference(inp, "3-view bench scene, 1 view")
-    return dict(inp=inp, err=err, stats=stats, fused_vs_unfused=fused_vs_unfused)
+    label = "3-view bench scene, 1 view"
+    with slots_rule_only():
+        err, stats = compare_kernel_plain(inp, f"{label}, unfused", unfused=True, exact=True)
+        err1, _ = compare_kernel_plain(inp, f"{label}, unfused", unfused=True, span=1,
+                                       exact=True)
+        fused_vs_unfused = max(max_fused_difference(inp, label, span) for span in (None, 1))
+        span_one_vs_whole(inp, label)
+    return dict(inp=inp, err=max(err, err1), stats=stats, fused_vs_unfused=fused_vs_unfused)
 
 
-def max_fused_difference(inp, label):
+def max_fused_difference(inp, label, span=None):
     """The unfused forward kernel against the fused one on the same
-    instances: both walk each pixel's instances in order with -fmad=false,
-    so they must agree bit for bit."""
-    unfused = fwd_calls(inp, unfused=True)[0]()
-    fused = fwd_calls(inp)[0]()
+    instances, both at `span` (None: FWD_SPAN): both walk each pixel's
+    instances in order with -fmad=false, so they must agree bit for bit."""
+    from splatter360_tpu_torch.ops.cuda.composite import FWD_SPAN
+
+    span = FWD_SPAN if span is None else span
+    unfused = fwd_calls(inp, unfused=True)[0](span=span)
+    fused = fwd_calls(inp)[0](span=span)
     diff = float((unfused - fused).abs().max())
-    print(f"[{label}] unfused vs fused forward kernel: max difference {diff:.3e}, "
+    print(f"[{label}] span {span}: unfused vs fused forward kernel: max difference {diff:.3e}, "
           f"bit-equal {torch.equal(unfused, fused)}")
     if not torch.equal(unfused, fused):
         raise AssertionError(f"[{label}] the unfused and fused forward kernels differ")
     return diff
+
+
+def span_one_vs_whole(inp, label):
+    """Both forward kernels at span 1 against one span a tile: spans of one
+    block add across blocks in walk order, as one span a tile does, so all
+    8 planes must agree bit for bit."""
+    for unfused in (False, True):
+        kernel = fwd_calls(inp, unfused)[0]
+        same = torch.equal(kernel(span=1), kernel(span=None))
+        print(f"[{label}] {'unfused' if unfused else 'fused'} forward kernel, span 1 vs one span "
+              f"a tile: bit-equal {same}")
+        if not same:
+            raise AssertionError(f"[{label}] the forward at span 1 differs from one span a tile")
 
 
 @phase("2d. unfused backward (kernel, map, scatter) vs plain and vs the fused backward, "
@@ -1075,6 +1200,21 @@ def phase_timing(check, serve, bcheck, train, ucheck, ubcheck, serve3, train3):
                   f"scatter) {ms + scatter_ms:.3f} ms; the fused backward kernel on the same "
                   f"inputs {fused_ms:.3f} ms")
             rows[label].update(scatter_ms=scatter_ms, fused_ms=fused_ms)
+    # the forward by span on the flagship scene, the serving inputs and the
+    # train steps' Gaussians (the last step's and the first step's)
+    for label, res, unfused in (("flagship 1 view", check, False),
+                                ("unfused 3-view flagship 1 view", ucheck, True),
+                                ("serving 4 views", serve, False),
+                                ("unfused serving 4 views", serve3, True),
+                                ("train 4 views", train, False),
+                                ("unfused train 4 views", train3, True)):
+        if res is None:
+            continue
+        # the flagship scenes' calls take well under a millisecond: more of them
+        fwd_report(res["inp"], f"forward, {label}", unfused,
+                   iters=20 if "flagship" in label else 3)
+        if "first" in res:
+            fwd_report(res["first"]["inp"], f"forward, {label}, step 0 Gaussians", unfused)
     if serve is not None:
         parts = render_breakdown(serve["gaussians"], list(serve["tgt_pose"]))
         print(f"[render breakdown, {N_TGT} views] " +

@@ -98,18 +98,14 @@ namespace composite {
 
 constexpr int BWD_THREADS = 32 * N_SUB;  // one warp per region
 constexpr int BWD_MIN_BLOCKS = 2;        // resident blocks an SM
-constexpr int SCAN_THREADS = 256;
 // a region's parts: 8 columns x 4 rows, one pixel a lane
-constexpr int PART_W = 32 / SUB_H;
 constexpr int N_PART = SUB_W / PART_W;
 static_assert(PART_W * SUB_H == 32 && N_PART == 4, "a part: one pixel a lane; four a region");
-constexpr unsigned FULL = 0xffffffffu;
 // the unfused kernel's per-warp sums: [N_SUB][N_GRAD][CHUNK] floats
 constexpr int BWD_SLOT_BYTES = N_SUB * N_GRAD * CHUNK * 4;
 
 static_assert(N_SUB <= 32, "one mask bit per region");
 static_assert(BWD_THREADS >= CHUNK, "threads 0-127 read one instance each");
-static_assert(N_PIX % SCAN_THREADS == 0, "the scan covers a tile's pixels exactly");
 
 // Bit w set when region w of the tile may hold a pixel with |px - u| <= rx
 // and |py - v| <= ry, for a centre (du, dv) relative to the tile's corner.
@@ -157,46 +153,6 @@ __device__ __forceinline__ void parts_of(const float (*s)[CHUNK + 1], int l, flo
   const float c1 = s[0][l] + s[10][l] + 1.0f - x_left;
   ka = static_cast<int>(fmaxf(c0, 0.0f)) / PART_W;
   kb = static_cast<int>(fminf(c1, SUB_W - 1.0f)) / PART_W;
-}
-
-// The span length of a tile that walks n blocks: `span` for a tile heavier
-// than `heavy` blocks, else the whole walk.
-__device__ __forceinline__ int tile_span(int n, int span, int heavy) {
-  return n > heavy ? span : max(n, 1);
-}
-
-// Spans of a tile's walk; span 0 holds the last walked blocks.
-__device__ __forceinline__ int n_spans_of(int n, int span, int heavy) {
-  const int sp = tile_span(n, span, heavy);
-  return (n + sp - 1) / sp;
-}
-
-// Work item `item` -> (view * n_tiles + tile, its span, the tile's spans, the
-// span's highest and lowest walked block); false past the last item.
-struct SpanItem {
-  int seg, s, n_spans, j_hi, j_lo;
-};
-
-__device__ inline bool find_item(const int* __restrict__ item_end, const int* __restrict__ nproc,
-                                 int n_segs, int span, int heavy, int item, SpanItem& it) {
-  if (item >= item_end[n_segs - 1]) return false;
-  int lo = 0, hi = n_segs - 1;  // the first seg whose item_end exceeds item
-  while (lo < hi) {
-    const int mid = (lo + hi) / 2;
-    if (item_end[mid] > item) {
-      hi = mid;
-    } else {
-      lo = mid + 1;
-    }
-  }
-  const int n = nproc[lo];
-  const int sp = tile_span(n, span, heavy);
-  it.seg = lo;
-  it.n_spans = (n + sp - 1) / sp;
-  it.s = item - (item_end[lo] - it.n_spans);
-  it.j_hi = n - 1 - it.s * sp;
-  it.j_lo = max(0, it.j_hi - (sp - 1));
-  return true;
 }
 
 // PASS 1 stores each span's L in `lsum`, PASS 2 its P in `psum` (both
@@ -272,7 +228,10 @@ composite_bwd_kernel(Src src, const int* __restrict__ starts, const int* __restr
     return out + (static_cast<size_t>(view) * n_out + obase[seg] + j) * ROWS * CHUNK + tid;
   };
 
-  for (int j = it.j_hi; j >= it.j_lo; --j) {
+  // the span's highest and lowest walked block (span 0 holds the last ones)
+  const int j_hi = nproc[seg] - 1 - it.s * it.len;
+  const int j_lo = max(0, j_hi - (it.len - 1));
+  for (int j = j_hi; j >= j_lo; --j) {
     const int idx = (blk0 + j) * CHUNK + tid;
     const int g = (tid < CHUNK && idx >= start && idx < start + count) ? src.key(view, idx) : -1;
     __syncthreads();  // the previous block's shared-memory reads are done
@@ -487,28 +446,6 @@ composite_bwd_kernel(Src src, const int* __restrict__ starts, const int* __restr
   } else if (PASS == 2) {
 #pragma unroll
     for (int r = 0; r < N_PART; ++r) psum[item_px + pixel(r)] = a_psi[r];
-  }
-}
-
-// Per (tile, pixel) of a tile with several spans: x[item] (one span's own
-// sum, span 0 first) becomes the sum of the spans before it in walk order,
-// added span 0 first; span 0's own row is left as it was (its start is 0).
-__global__ void __launch_bounds__(SCAN_THREADS)
-span_scan_kernel(const int* __restrict__ item_end, const int* __restrict__ nproc, int span,
-                 const int* __restrict__ heavy, float* __restrict__ x) {
-  const int seg = blockIdx.x;
-  const int p = blockIdx.y * SCAN_THREADS + threadIdx.x;
-  const int n_spans = n_spans_of(nproc[seg], span, *heavy);
-  if (n_spans < 2) return;
-  float* row = x + static_cast<size_t>(item_end[seg] - n_spans) * N_PIX + p;
-  float acc = 0.0f;
-  float v = row[0];
-  for (int s = 1; s < n_spans; ++s) {
-    acc = acc + v;
-    // the lowest span stored nothing: its row only receives its start
-    const float next = s + 1 < n_spans ? row[static_cast<size_t>(s) * N_PIX] : 0.0f;
-    row[static_cast<size_t>(s) * N_PIX] = acc;
-    v = next;
   }
 }
 

@@ -12,20 +12,24 @@
 // pairs of a block lie outside the instances' radius boxes, as in the
 // encoder's scenes; FP32 operations (the per-pair alpha/transmittance chain)
 // where splats cover most pixels of their blocks. Neither is what limits it
-// today: a tile's blocks are walked in order (composite_fwd.cuh).
+// today: a block's pixel work is a chain of dependent exp/log1p per pixel,
+// and a heavy tile's blocks are cut into spans that run at once
+// (composite_fwd.cuh).
 
 #include "composite_fwd.cuh"
 
-// attrs [V, N, 16] f32, gidx [V, K] i32, starts/counts [V, T] i32,
-// out [V, T, 8, 2048] f32, scratch [V, T, 16] i32 (the regions' own exits).
-// Launches both passes on `stream`; returns cudaGetLastError() after them.
-extern "C" int composite_fwd_fused(const void* attrs, const void* gidx,
-                                   const void* starts, const void* counts,
-                                   void* out, void* scratch, int n_views, int n,
-                                   int k, int nty, int ntx, float w_img,
-                                   int wrap_x, void* stream) {
+// attrs [V, N, 16] f32, gidx [V, K] i32; the rest as for
+// launch_composite_fwd (composite_fwd.cuh). Returns its CUDA error, 0 if
+// none.
+extern "C" int composite_fwd_fused(const void* attrs, const void* gidx, const void* starts,
+                                   const void* counts, const void* nseg, const void* heavy,
+                                   const void* item_end, void* lsum, void* csum, void* stop,
+                                   void* next, void* out, int n_views, int n, int k, int nty,
+                                   int ntx, int span, int n_items, float w_img, int wrap_x,
+                                   void* stream) {
   const composite::GatheredRows src{static_cast<const float4*>(attrs),
                                     static_cast<const int*>(gidx), n, k};
-  return composite::launch_composite_fwd(src, starts, counts, out, scratch, n_views, nty, ntx,
+  return composite::launch_composite_fwd(src, starts, counts, nseg, heavy, item_end, span,
+                                         n_items, lsum, csum, stop, next, out, n_views, nty, ntx,
                                          w_img, wrap_x, stream);
 }

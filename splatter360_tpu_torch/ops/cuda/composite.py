@@ -18,10 +18,10 @@ output [V, T, 8, 2048] f32 per tile: r g b depth T logT n_processed 0. The
 backwards read the cotangents of planes 0-4; the fused one returns g_attrs
 [V, N, 16] (rows 10-15 zero), the unfused one tile-owned gradient blocks
 dout [V, K/128 + T, 16, 128] that `scatter_out_blocks` adds into g_attrs.
-The backwards cut each tile's walk into spans of `span` blocks (BWD_SPAN by
-default, None for one span a tile) that the kernels run at once; the span
-sets the order of the sums across blocks, and the plain versions take the
-same order.
+The kernels cut each heavy tile's blocks into spans of `span` blocks
+(FWD_SPAN and BWD_SPAN by default, None for one span a tile) that run at
+once; the span sets the order of the sums across blocks, and the plain
+versions take the same order.
 """
 
 from __future__ import annotations
@@ -36,7 +36,7 @@ CHUNK = BLOCK
 N_PIX = TILE_H * TILE_W
 ROWS = 16
 N_GRAD = 10  # gradient rows: u v a b c o r g b depth
-N_REGIONS = 16  # thread blocks per tile in the forward kernel (N_SUB in the source)
+N_REGIONS = 16  # regions of a tile, a work item's pieces in the forward kernels (N_SUB)
 _NEG_CUTOFF = -4.5
 _ALPHA_MIN = 1.0 / 255.0
 _T_EPS = 1e-4
@@ -44,6 +44,9 @@ _LOG_T_EPS = -9.21034  # log(1e-4)
 # tiles per step of the plain versions: bounds their [tiles, 2048, 128]
 # temporaries to ~270 MB each
 _PLAIN_TILES_PER_STEP = 256
+# blocks of a tile's segment one work item of the forward kernels takes
+# (csrc/composite_fwd.cuh), from the sweep of chip_smoke.py's phase 4
+FWD_SPAN = 16
 # blocks of a tile's walk one work item of the backward kernels takes
 # (csrc/composite_bwd.cuh), from the sweep of chip_smoke.py's phase 4: 4-64
 # are alike on the train steps' Gaussians, and a tile of at most 16 blocks
@@ -51,22 +54,34 @@ _PLAIN_TILES_PER_STEP = 256
 BWD_SPAN = 16
 # the C entry points' span for one span a tile (span=None): beyond any walk
 _ONE_SPAN = 1 << 30
-# only a tile walking more than a call's walked blocks over BWD_SPLIT_SLOTS
-# is cut into spans: a lighter one walks whole, and pays no extra passes.
-# Per H100 SM (132), four: a whole walk takes ~2.5x a block's share of an SM
-# per block (two blocks share one), so near a call's blocks over 330 one
-# tile alone outlasts the call; 4 x 132 leaves room for the cut tiles'
-# extra passes (the sweep of 132, 264 and 528 in PERF.md)
-BWD_SPLIT_SLOTS = 4 * 132
+# only a tile of more than a call's blocks over split_slots(device) is cut
+# into spans: a lighter one is one span, and pays no extra passes. Four a
+# SM: a whole walk takes ~2.5x a block's share of an SM per block (two
+# blocks share one), so near a call's blocks over 2.5 a SM one tile alone
+# outlasts the call; four leave room for the cut tiles' extra passes (the
+# backward's sweep of 1, 2 and 4 a SM; the forward's of 1, 2 and 4, where a
+# tile's walk under a full card takes several times its walk alone;
+# PERF.md)
+SPLIT_SLOTS_PER_SM = 4
+# the forward cuts a tile only past this many times the call's mean segment
+# blocks too: its threshold follows the segment, and a tile whose segment
+# lies mostly past its exit (every cut tile of the flagship scene, whose
+# tiles exit within 13 of up to 118 segment blocks) would pay a first pass
+# over the whole segment for a walk that ends early (the sweep of 0, 2, 3
+# and 4 in PERF.md)
+FWD_HEAVY_OVER_MEAN = 3
+# the H100's SMs: the slots of the plain versions on the CPU, which has none
+_H100_SMS = 132
 
 KERNEL_NAME = "composite_forward_fused"
 BWD_KERNEL_NAME = "composite_backward_fused"
 UNFUSED_KERNEL_NAME = "composite_forward_unfused"
 UNFUSED_BWD_KERNEL_NAME = "composite_backward_unfused"
 # calls that launch a CUDA kernel, one per call: a forward call is the
-# forward kernel's two grid passes (csrc/composite_fwd*.cu), a backward call
-# the backward kernel's three passes and two scans (csrc/composite_bwd*.cu),
-# each over all its views. The plain versions never count.
+# forward kernel's three passes, scan and combine (csrc/composite_fwd*.cu), a
+# backward call the backward kernel's three passes and two scans
+# (csrc/composite_bwd*.cu), each over all its views. The plain versions
+# never count.
 launch_counts = {KERNEL_NAME: 0, BWD_KERNEL_NAME: 0, UNFUSED_KERNEL_NAME: 0,
                  UNFUSED_BWD_KERNEL_NAME: 0}
 
@@ -149,6 +164,15 @@ def _check_backward(starts, g_planes, lt_final, nproc):
         raise ValueError(f"inputs on several devices: {devs}")
 
 
+def split_slots(device: torch.device) -> int:
+    """The work-item slots a call's blocks are shared over when the spans'
+    threshold is set: SPLIT_SLOTS_PER_SM for each SM of the card that runs
+    it (the H100's 132 for CPU tensors)."""
+    if device.type == "cuda":
+        return SPLIT_SLOTS_PER_SM * torch.cuda.get_device_properties(device).multi_processor_count
+    return SPLIT_SLOTS_PER_SM * _H100_SMS
+
+
 def _span(span: int | None) -> int:
     if span is None:
         return _ONE_SPAN
@@ -157,61 +181,92 @@ def _span(span: int | None) -> int:
     return span
 
 
-def _tile_spans(nproc, span: int | None):
-    """Per (view, tile) the blocks walked n [V T] and the span length
-    [V T] (int64), and heavy [1] int32: a tile walking more than heavy
-    blocks takes spans of `span`, any other one span, its whole walk."""
+def _tile_spans(n_blk, span: int | None, over_mean: int = 0):
+    """Per (view, tile) its blocks n [V T] (the backward: the blocks it
+    walks; the forward: the blocks its segment spans) and the span length
+    [V T] (int64), and heavy [1] int32: a tile of more than heavy blocks
+    (the call's blocks over split_slots, and over_mean times their mean)
+    takes spans of `span`, any other one span, all its blocks."""
     s = _span(span)
-    n = nproc.reshape(-1).to(torch.int64)
-    heavy = n.sum() // BWD_SPLIT_SLOTS
+    n = n_blk.reshape(-1).to(torch.int64)
+    heavy = torch.maximum(n.sum() // split_slots(n_blk.device),
+                          over_mean * n.sum() // max(n.numel(), 1))
     length = torch.where(n > heavy, torch.full_like(n, s), n.clamp(min=1))
     return n, length, heavy.reshape(1).to(torch.int32)
 
 
-def span_item_end(nproc, span: int | None):
-    """(item_end [V T] int32, heavy [1] int32): the backward's work items
+def span_item_end(n_blk, span: int | None, over_mean: int = 0):
+    """(item_end [V T] int32, heavy [1] int32): the kernels' work items
     numbered tile by tile, the inclusive cumsum over (view, tile) of each
     tile's spans (_tile_spans), and the threshold the kernel reads."""
-    n, length, heavy = _tile_spans(nproc, span)
+    n, length, heavy = _tile_spans(n_blk, span, over_mean)
     return torch.cumsum((n + length - 1) // length, 0).to(torch.int32), heavy
 
 
 def span_items_bound(v: int, t: int, nblk: int, span: int | None) -> int:
-    """The backward's grid, from shapes alone: V T + ceil(V NBLK / span) work
+    """The kernels' grid, from shapes alone: V T + ceil(V NBLK / span) work
     items, never fewer than the items of span_item_end, since a view's
-    tiles walk at most NBLK + T blocks between them."""
+    tiles span at most NBLK + T blocks between them."""
     return v * t + -(-v * nblk // _span(span))
 
 
+def segment_blocks(starts, counts) -> torch.Tensor:
+    """[V, T] int32: the blocks of CHUNK instances each tile's segment spans."""
+    return ((starts + counts + CHUNK - 1) // CHUNK - starts // CHUNK).to(torch.int32)
+
+
+def _launch_forward(name, fn, rows, starts, counts, v, nblk, nty, ntx, w_img, wrap_x, span):
+    """Launch a forward kernel with its spans' table and scratch; rows:
+    its row source's pointers (before starts) and ints (after n_views).
+    Returns the planes [V, T, 8, 2048]."""
+    dev = starts.device
+    t = nty * ntx
+    nseg = segment_blocks(starts, counts)
+    item_end, heavy = span_item_end(nseg, span, FWD_HEAVY_OVER_MEAN)
+    n_items = span_items_bound(v, t, nblk, span)
+    # per item: its L, then its starting logT, then its logT at its stop;
+    # its colour sums; the block each region and the span stopped at
+    lsum = torch.empty((n_items, N_PIX), dtype=torch.float32, device=dev)
+    csum = torch.empty((n_items, 4, N_PIX), dtype=torch.float32, device=dev)
+    stop = torch.empty((n_items, N_REGIONS + 1), dtype=torch.int32, device=dev)
+    # the three passes' counters of (item, region) pairs taken
+    next_pair = torch.zeros(3, dtype=torch.int32, device=dev)
+    out = torch.empty((v, t, 8, N_PIX), dtype=torch.float32, device=dev)
+    ptrs, ints = rows
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = fn(*ptrs, starts.data_ptr(), counts.data_ptr(), nseg.data_ptr(), heavy.data_ptr(),
+                 item_end.data_ptr(), lsum.data_ptr(), csum.data_ptr(), stop.data_ptr(),
+                 next_pair.data_ptr(), out.data_ptr(), v, *ints, nty, ntx, _span(span), n_items,
+                 float(w_img), int(bool(wrap_x)), stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+    launch_counts[name] += 1
+    return out
+
+
 def composite_forward(attrs, gidx, starts, counts, nty: int, ntx: int,
-                      w_img: float, wrap_x: bool) -> torch.Tensor:
-    """Composite every (view, tile); returns the planes [V, T, 8, 2048]."""
+                      w_img: float, wrap_x: bool, span: int | None = FWD_SPAN) -> torch.Tensor:
+    """Composite every (view, tile); returns the planes [V, T, 8, 2048].
+    `span`: blocks of a heavy tile's segment one work item takes (None: all
+    of them), which sets the order of the sums across blocks."""
     _check(attrs, gidx, starts, counts, nty, ntx)
+    _span(span)
     if not attrs.is_cuda:
-        return composite_forward_plain(attrs, gidx, starts, counts, nty, ntx, w_img, wrap_x)
+        return composite_forward_plain(attrs, gidx, starts, counts, nty, ntx, w_img, wrap_x,
+                                       span=span)
     from .build import load
 
     fn = load("composite_fwd").composite_fwd_fused
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     attrs, gidx = attrs.contiguous(), gidx.contiguous()
     starts, counts = starts.contiguous(), counts.contiguous()
     v, n, _ = attrs.shape
-    t = nty * ntx
-    out = torch.empty((v, t, 8, N_PIX), dtype=torch.float32, device=attrs.device)
-    # each tile region's own exit block, passed from the kernel's first pass
-    # to its second
-    region_exits = torch.empty((v, t, N_REGIONS), dtype=torch.int32, device=attrs.device)
-    stream = torch.cuda.current_stream(attrs.device).cuda_stream
-    with torch.cuda.device(attrs.device):
-        err = fn(attrs.data_ptr(), gidx.data_ptr(), starts.data_ptr(), counts.data_ptr(),
-                 out.data_ptr(), region_exits.data_ptr(), v, n, gidx.shape[1], nty, ntx,
-                 float(w_img), int(bool(wrap_x)), stream)
-    if err != 0:
-        raise RuntimeError(f"{KERNEL_NAME} launch failed: cudaError {err}")
-    launch_counts[KERNEL_NAME] += 1
-    return out
+    rows = ((attrs.data_ptr(), gidx.data_ptr()), (n, gidx.shape[1]))
+    return _launch_forward(KERNEL_NAME, fn, rows, starts, counts, v, gidx.shape[1] // CHUNK,
+                           nty, ntx, w_img, wrap_x, span)
 
 
 def composite_backward(attrs, gidx, starts, counts, g_planes, lt_final, nproc,
@@ -273,38 +328,32 @@ def out_block_layout(starts, counts) -> torch.Tensor:
     """obase [V, T] int32: each tile's first block in the unfused backward's
     tile-owned output, the exclusive cumsum of its blocks
     (`_out_block_layout`); the output has K/128 + T blocks."""
-    nblocks = (starts + counts + CHUNK - 1) // CHUNK - starts // CHUNK
+    nblocks = segment_blocks(starts, counts)
     return (torch.cumsum(nblocks, dim=1) - nblocks).to(torch.int32)
 
 
 def composite_forward_unfused(inst, starts, counts, nty: int, ntx: int,
-                              w_img: float, wrap_x: bool) -> torch.Tensor:
+                              w_img: float, wrap_x: bool,
+                              span: int | None = FWD_SPAN) -> torch.Tensor:
     """Composite every (view, tile) from the instance blocks inst
     [V, K/128, 16, 128]; returns the planes [V, T, 8, 2048], equal to
-    composite_forward's on the instances pack_instances gives."""
+    composite_forward's on the instances pack_instances gives, at the same
+    `span`."""
     _check_inst(inst, starts, counts, nty, ntx)
+    _span(span)
     if not inst.is_cuda:
-        return composite_forward_unfused_plain(inst, starts, counts, nty, ntx, w_img, wrap_x)
+        return composite_forward_unfused_plain(inst, starts, counts, nty, ntx, w_img, wrap_x,
+                                               span=span)
     from .build import load
 
     fn = load("composite_fwd_unfused").composite_fwd_unfused
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     inst, starts, counts = inst.contiguous(), starts.contiguous(), counts.contiguous()
     v, nblk = inst.shape[:2]
-    t = nty * ntx
-    out = torch.empty((v, t, 8, N_PIX), dtype=torch.float32, device=inst.device)
-    region_exits = torch.empty((v, t, N_REGIONS), dtype=torch.int32, device=inst.device)
-    stream = torch.cuda.current_stream(inst.device).cuda_stream
-    with torch.cuda.device(inst.device):
-        err = fn(inst.data_ptr(), starts.data_ptr(), counts.data_ptr(), out.data_ptr(),
-                 region_exits.data_ptr(), v, nblk, nty, ntx, float(w_img), int(bool(wrap_x)),
-                 stream)
-    if err != 0:
-        raise RuntimeError(f"{UNFUSED_KERNEL_NAME} launch failed: cudaError {err}")
-    launch_counts[UNFUSED_KERNEL_NAME] += 1
-    return out
+    return _launch_forward(UNFUSED_KERNEL_NAME, fn, ((inst.data_ptr(),), (nblk,)), starts,
+                           counts, v, nblk, nty, ntx, w_img, wrap_x, span)
 
 
 def composite_backward_unfused(inst, starts, counts, g_planes, lt_final, nproc,
@@ -456,38 +505,101 @@ class _Walk:
 
 
 def composite_forward_plain(attrs, gidx, starts, counts, nty: int, ntx: int,
-                            w_img: float, wrap_x: bool,
-                            stats: dict | None = None) -> torch.Tensor:
+                            w_img: float, wrap_x: bool, stats: dict | None = None,
+                            span: int | None = FWD_SPAN) -> torch.Tensor:
     """The forward kernel's function in PyTorch ops, same outputs.
 
     Vectorised over (view, tile) pairs, it walks the block index with the
     same per-tile exit test, and inside a block walks the 128 lanes in order
-    so that the prefix and colour sums round exactly as the kernel's do.
-    `stats`, if given, receives the number of (pixel, instance) pairs that
-    pass the gate under "pairs_alive"."""
+    so that the prefix and colour sums round exactly as the kernel's do;
+    across blocks it adds them in the kernel's order for spans of `span`
+    blocks (None: one span a tile). `stats`, if given, receives the number
+    of (pixel, instance) pairs that pass the gate under "pairs_alive"."""
     walk = _Walk(_gathered(attrs, gidx), gidx.shape[1], starts, counts, nty, ntx, w_img, wrap_x)
-    return _forward_walk(walk, stats)
+    return _forward_walk(walk, stats, span)
 
 
 def composite_forward_unfused_plain(inst, starts, counts, nty: int, ntx: int,
-                                    w_img: float, wrap_x: bool,
-                                    stats: dict | None = None) -> torch.Tensor:
+                                    w_img: float, wrap_x: bool, stats: dict | None = None,
+                                    span: int | None = FWD_SPAN) -> torch.Tensor:
     """The unfused forward kernel's function in PyTorch ops: the walk of
     composite_forward_plain over rows read from inst. On the instances
     pack_instances gives, it equals composite_forward_plain exactly."""
     walk = _Walk(_packed(inst), inst.shape[1] * CHUNK, starts, counts, nty, ntx, w_img, wrap_x)
-    return _forward_walk(walk, stats)
+    return _forward_walk(walk, stats, span)
 
 
-def _forward_walk(walk: _Walk, stats: dict | None) -> torch.Tensor:
+def _block_sums(alpha, data, t_blk):
+    """One block's per-pixel sums, from 0, for pairs alpha [L, 2048, 128]
+    (lanes last), rows data [L, 128, 16] and logT t_blk [L, 2048] before
+    the block: e, the sum of log1p(-alpha) [L, 2048], and b, the colour sums
+    of the weights w = alpha T_i, T_i = exp(logT + e so far), kept where
+    T_i (1 - alpha) >= 1e-4 [L, 2048, 4]. Each pixel takes its pairs in lane
+    order, as the kernel does; a pair of alpha 0 adds -0 or 0 to every sum,
+    which changes no value, so only the others are taken, the k-th of every
+    pixel in one step."""
+    n_l = alpha.shape[0]
+    dev = alpha.device
+    e = torch.zeros(n_l * N_PIX, dtype=torch.float32, device=dev)
+    b = torch.zeros(n_l * N_PIX, 4, dtype=torch.float32, device=dev)
+    tile, p, lane = (alpha > 0.0).nonzero(as_tuple=True)  # pixel by pixel, lanes ascending
+    m = tile.numel()
+    if m:
+        pix = tile * N_PIX + p
+        al = alpha[tile, p, lane]
+        lg = torch.log1p(-al)
+        cd = data[tile, lane, 6:10]
+        # each pair's rank among its pixel's pairs
+        idx = torch.arange(m, device=dev)
+        first = torch.ones(m, dtype=torch.bool, device=dev)
+        first[1:] = pix[1:] != pix[:-1]
+        rank = idx - torch.cummax(torch.where(first, idx, 0), 0).values
+        order = torch.argsort(rank, stable=True)
+        t_flat = t_blk.reshape(-1)
+        pos = 0
+        for cnt in torch.bincount(rank).tolist():
+            sel = order[pos:pos + cnt]
+            pos += cnt
+            q, a = pix[sel], al[sel]
+            e_q = e[q]
+            t_i = torch.exp(t_flat[q] + e_q)
+            w = torch.where(t_i * (1.0 - a) >= _T_EPS, a * t_i, torch.zeros_like(a))
+            b[q] = b[q] + w[:, None] * cd[sel]
+            e[q] = e_q + lg[sel]
+    return e.reshape(n_l, N_PIX), b.reshape(n_l, N_PIX, 4)
+
+
+def _forward_walk(walk: _Walk, stats: dict | None, span: int | None) -> torch.Tensor:
+    """The plain forward's walk. The sums across blocks take the kernel's
+    association for spans of `span` blocks: each block's sums of
+    log1p(-alpha) and of the colours start from 0 and are added into its
+    span's own sums (`own_*`); a tile cut into spans (_tile_spans over the
+    segment blocks) starts span k at block k * span from `start`, the
+    earlier spans' log1p(-alpha) sums added span by span, and adds each
+    span's colour sums into the tile's (`total`) as it closes it, as the
+    kernel's scan and combine do. The exit test reads logT where the kernel
+    does: a span's running sum, its start at its first block."""
     dev = walk.lanes.device
     vt = walk.vt
-    tacc = torch.zeros(vt, N_PIX, dtype=torch.float32, device=dev)
-    acc = torch.zeros(vt, N_PIX, 4, dtype=torch.float32, device=dev)
+    s = _span(span)
+    n_blocks = walk.n_blocks
+    _, _, heavy = _tile_spans(n_blocks, span, FWD_HEAVY_OVER_MEAN)
+    cut = n_blocks > heavy
+    tacc, start, own_lg = (torch.zeros(vt, N_PIX, dtype=torch.float32, device=dev)
+                           for _ in range(3))
+    total, own_c = (torch.zeros(vt, N_PIX, 4, dtype=torch.float32, device=dev) for _ in range(2))
     nproc = torch.zeros(vt, dtype=torch.long, device=dev)
     running = torch.ones(vt, dtype=torch.bool, device=dev)
-    for j in range(int(walk.n_blocks.max().item()) if vt else 0):
-        running = running & (j < walk.n_blocks) & (tacc.max(dim=1).values >= _LOG_T_EPS)
+    for j in range(int(n_blocks.max().item()) if vt else 0):
+        if j and j % s == 0:
+            # a new span of each cut tile still walking
+            new = (running & cut & (j < n_blocks)).nonzero().squeeze(1)
+            total[new] = total[new] + own_c[new]
+            own_c[new] = 0.0
+            start[new] = start[new] + own_lg[new]
+            tacc[new] = start[new]
+            own_lg[new] = 0.0
+        running = running & (j < n_blocks) & (tacc.max(dim=1).values >= _LOG_T_EPS)
         live_all = running.nonzero().squeeze(1)
         if live_all.numel() == 0:
             break
@@ -497,32 +609,14 @@ def _forward_walk(walk: _Walk, stats: dict | None) -> torch.Tensor:
             if stats is not None:
                 stats["pairs_alive"] = stats.get("pairs_alive", 0) + int(gate.sum())
             del dx, dy, gate
-            # lanes first, each a contiguous [L, 2048] slice
-            alpha = alpha.permute(2, 0, 1).contiguous()
-            lg = torch.log1p(-alpha)
-            cd = data[..., 6:10].transpose(0, 1)  # [128, L, 4]
             t_blk = tacc[live]
-            # each lane's exclusive prefix of log1p(-alpha), summed in lane order
-            prefix = torch.empty_like(lg)
-            e = torch.zeros_like(t_blk)
-            for lane in range(CHUNK):
-                prefix[lane] = e
-                e = e + lg[lane]
-            # w is 0 wherever alpha is: the rest only where it is not
-            nz = (alpha > 0.0).nonzero(as_tuple=True)
-            al = alpha[nz]
-            t_i = torch.exp(t_blk[nz[1:]] + prefix[nz])
-            w = torch.zeros_like(alpha)
-            w[nz] = torch.where(t_i * (1.0 - al) >= _T_EPS, al * t_i, torch.zeros_like(al))
-            del prefix, t_i, al
-            a_blk = acc[live]
-            for lane in range(CHUNK):
-                a_blk = a_blk + w[lane][..., None] * cd[lane][:, None, :]
+            e, b = _block_sums(alpha, data, t_blk)
             tacc[live] = t_blk + e
-            acc[live] = a_blk
+            own_lg[live] = own_lg[live] + e
+            own_c[live] = own_c[live] + b
 
     out = torch.zeros(vt, 8, N_PIX, dtype=torch.float32, device=dev)
-    out[:, 0:4] = acc.transpose(1, 2)
+    out[:, 0:4] = (total + own_c).transpose(1, 2)
     out[:, 4] = torch.exp(tacc)
     out[:, 5] = tacc
     out[:, 6] = nproc.to(torch.float32)[:, None]

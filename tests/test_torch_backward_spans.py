@@ -21,6 +21,8 @@ from test_torch_unfused import compositor_inputs
 from splatter360_tpu_torch.ops.cuda import composite as tc
 
 torch.set_num_threads(2)
+# the spans' threshold divisor the plain versions take on the CPU
+SLOTS = tc.split_slots(torch.device("cpu"))
 # spans that reassociate the sums across blocks: within SPAN_TOL of max|g|
 # per row where |logT| <= 10; deeper, log_t_end = logT_final - suffix
 # cancels, and a float32 reassociation of the suffix moves log_t_end (so T,
@@ -39,7 +41,7 @@ def walked_blocks(nproc, span):
     v, t = nproc.shape
     item_end, heavy = tc.span_item_end(nproc, span)
     heavy = int(heavy)
-    assert heavy == int(nproc.sum()) // tc.BWD_SPLIT_SLOTS
+    assert heavy == int(nproc.sum()) // SLOTS
     nblk = int(nproc.sum(dim=1).max())  # a view's tiles walk at most NBLK + T blocks
     ends = item_end.tolist()
     assert ends[-1] <= tc.span_items_bound(v, t, nblk, span)
@@ -63,8 +65,8 @@ NPROC = {
     # walks of 0 blocks, multiples of the span, one short of one, one past one
     "small": [[0, 1, 3, 4, 5, 8, 12, 0], [16, 17, 0, 2, 33, 64, 7, 9]],
     # 300 tiles of 2 blocks and two heavy ones: only tiles past the call's
-    # blocks over BWD_SPLIT_SLOTS are cut
-    "lumpy": [[2] * 150 + [3 * tc.BWD_SPLIT_SLOTS, 0], [2] * 150 + [40, 7]],
+    # blocks over SLOTS are cut
+    "lumpy": [[2] * 150 + [3 * SLOTS, 0], [2] * 150 + [40, 7]],
 }
 
 
@@ -73,7 +75,7 @@ NPROC = {
 def test_span_items_cover_each_walked_block_once(case, span):
     """Every block a tile walks belongs to exactly one work item, and no
     item walks another block; a tile is cut into spans of `span` only when
-    it walks more than the call's blocks over BWD_SPLIT_SLOTS."""
+    it walks more than the call's blocks over SLOTS."""
     nproc = torch.tensor(NPROC[case], dtype=torch.int32)
     got, heavy, n_items = walked_blocks(nproc, span)
     flat = nproc.reshape(-1).tolist()

@@ -14,8 +14,8 @@ version: each row of g_attrs is held within 2e-3 of its max|g|, the bar of
 tests/test_pallas_composite.py:66-71, and its error's L2 norm within 1e-5
 of the row's, which a kernel right only on the largest gradients fails.
 The unfused kernels (the path past the fused table budget) are held the
-same way, through the pack, map and scatter around them. The backward
-kernels cut a tile's walk into spans of S blocks; each is held at spans of
+same way, through the pack, map and scatter around them. All four kernels
+cut a heavy tile's blocks into spans of S blocks; each is held at spans of
 1 and 3 blocks and the default against the plain version at the same span.
 """
 
@@ -94,14 +94,27 @@ def scene_inputs(kind, device):
     return args, asg
 
 
+FWD_SPANS = [1, 3, tc.FWD_SPAN]
+
+
+@pytest.fixture
+def cut_every_tile(monkeypatch):
+    """No tile of these scenes holds FWD_HEAVY_OVER_MEAN times the mean
+    segment; with that floor at 0 the forward cuts every tile past the
+    call's segment blocks over the slots, a few blocks here, so its spans,
+    scan and combine run."""
+    monkeypatch.setattr(tc, "FWD_HEAVY_OVER_MEAN", 0)
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("span", FWD_SPANS)
 @pytest.mark.parametrize("kind", ["random", "saturating"])
-def test_kernel_matches_plain_on_card(cuda_device, kind):
+def test_kernel_matches_plain_on_card(cuda_device, cut_every_tile, kind, span):
     args, asg = scene_inputs(kind, cuda_device)
     before = tc.launch_counts[tc.KERNEL_NAME]
-    got = tc.composite_forward(*args)
+    got = tc.composite_forward(*args, span=span)
     assert tc.launch_counts[tc.KERNEL_NAME] == before + 1
-    ref = tc.composite_forward_plain(*args)
+    ref = tc.composite_forward_plain(*args, span=span)
     assert tc.launch_counts[tc.KERNEL_NAME] == before + 1  # the plain version is no launch
     torch.cuda.synchronize()
     got, ref = got[0].cpu().numpy(), ref[0].cpu().numpy()
@@ -173,17 +186,18 @@ def unfused_args(args, asg):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("span", FWD_SPANS)
 @pytest.mark.parametrize("kind", ["random", "saturating"])
-def test_unfused_kernel_matches_plain_on_card(cuda_device, kind):
+def test_unfused_kernel_matches_plain_on_card(cuda_device, cut_every_tile, kind, span):
     """The unfused forward kernel against its plain version at the
     compositor bars, n_processed equal, and against the fused kernel on the
-    same instances: bit for bit."""
+    same instances: bit for bit, all at `span`."""
     args, asg = scene_inputs(kind, cuda_device)
     uargs = unfused_args(args, asg)
     before = tc.launch_counts[tc.UNFUSED_KERNEL_NAME]
-    got = tc.composite_forward_unfused(*uargs)
-    ref = tc.composite_forward_unfused_plain(*uargs)
-    fused = tc.composite_forward(*args)
+    got = tc.composite_forward_unfused(*uargs, span=span)
+    ref = tc.composite_forward_unfused_plain(*uargs, span=span)
+    fused = tc.composite_forward(*args, span=span)
     assert tc.launch_counts[tc.UNFUSED_KERNEL_NAME] == before + 1
     torch.cuda.synchronize()
     assert torch.equal(got, fused)
@@ -258,6 +272,9 @@ def test_unfused_kernels_refuse_bad_inputs():
         tc.composite_forward_unfused(inst[..., :64], seg, seg, 1, 2, 256.0, True)
     with pytest.raises(ValueError, match="counts"):
         tc.composite_forward_unfused(inst, seg, seg[:, :1], 1, 2, 256.0, True)
+    for span in (0, -1, 2.0, True):
+        with pytest.raises(ValueError, match="span"):
+            tc.composite_forward_unfused(inst, seg, seg, 1, 2, 256.0, True, span=span)
     g_planes = torch.zeros(1, 2, 8, 2048)
     lt = torch.zeros(1, 2, 2048)
     with pytest.raises(ValueError, match="inst"):
@@ -277,6 +294,9 @@ def test_kernel_refuses_bad_inputs():
         tc.composite_forward(attrs, gidx[:, :100], seg, seg, 1, 2, 256.0, True)
     with pytest.raises(ValueError, match="starts"):
         tc.composite_forward(attrs, gidx, seg.long(), seg, 1, 2, 256.0, True)
+    for span in (0, -1, 2.0, True):
+        with pytest.raises(ValueError, match="span"):
+            tc.composite_forward(attrs, gidx, seg, seg, 1, 2, 256.0, True, span=span)
     g_planes = torch.zeros(1, 2, 8, 2048)
     lt = torch.zeros(1, 2, 2048)
     bwd = (attrs, gidx, seg, seg, g_planes, lt, seg)
