@@ -21,6 +21,11 @@ Phases (any failure ends in a non-zero exit and no result line):
      plain version and against the fused backward there, at both spans; at
      span 1 its blocks equal those of one span a tile bit for bit (both sum
      across blocks in walk order);
+  2e. the same checks at wrap_x=False on the 6 pinhole cube faces (256x256)
+     of one pose: the fused pair on the 2-view flagship scene, the unfused
+     pair on the 3-view one; and one 512x1024 pinhole view binned with the
+     wrap, composited at wrap_x=True and False, which must differ at both
+     side edges (the flag reaches the kernel);
   3. serve N_REQUESTS HM3D-width requests through the port's entry points
      (2 context panoramas -> encode -> N Gaussians -> 4 target ERP views with
      depth), counting kernel launches, and (3b) compare the GPU serving path
@@ -33,6 +38,13 @@ Phases (any failure ends in a non-zero exit and no result line):
   3e-3g. the same with 3 context panoramas, where N = 3*512*1024 takes the
      unfused kernels: serving (3e), train steps (3f), GPU vs CPU train step
      on a small input with both on the unfused path (3g);
+  3h-3j. the cube-face path: serving (encode -> serve.render_cube_views, the
+     6 faces of N_TGT views, 2 then 3 context panoramas, each request one
+     forward launch for all 24 faces), train steps with cube supervision
+     (TrainConfig(supervision="cubes"), remat_faces off, N_STEPS with 2
+     context panoramas and N_STEPS - 1 with 3; the backward kernel against
+     its plain version on the last step's face inputs), and a GPU against a
+     CPU cube train step on a small input, fused then unfused;
   4. time each kernel and its plain version with CUDA events, the unfused
      path's pack and scatter apart, the fused kernels on the 3-view inputs,
      and the serving render stage by stage; both backward kernels at their
@@ -42,9 +54,11 @@ Phases (any failure ends in a non-zero exit and no result line):
      one span a tile), with the blocks each tile walks (forward: in its
      segment and processed), the warps' visits per block, the time with
      every tile capped at 64 blocks, and the blocks the forward's first pass
-     sums past a tile's exit.
-It prints one JSON line of per-kernel numbers, the nvidia-smi line, and as
-its last line {"ok": true, "device": {...}}.
+     sums past a tile's exit; each kernel (ms, bound, plain ms) on the cube
+     inputs (2e, 3h, 3i) and the forwards on all the train steps' inputs.
+It prints one JSON line of per-kernel numbers (the ERP path's, and the cube
+path's under cube_*), the nvidia-smi line, and as its last line
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -67,6 +81,8 @@ N_CTX, N_TGT = 2, 4
 N_CTX3 = 3
 N_REQUESTS = 3
 N_STEPS = 3
+# the cube faces of HM3D width (TrainConfig.cube_face_size None: H // 2)
+FACE = H // 2
 # compositor tolerances: the bars the JAX package holds its two compositor
 # backends to (tests/test_pallas_composite.py:47-49)
 ATOL_RGB, ATOL_DEPTH = 1e-4, 5e-4
@@ -94,6 +110,11 @@ GRAD_TOL = 2e-3
 # and, per row, |g_kernel - g_plain|_2 / |g_plain|_2: a kernel right only on
 # the few largest gradients fails it, float atomics (~2e-8 of max|g|) do not
 L2_TOL = 1e-5
+# the one gradient leaf of phase 3j's small cube steps past GRAD_TOL, at a
+# fixed bound: the CPU step's own gradient of it jumps by 2.12e-3 of max|g|
+# under a 1e-6 perturbation of the params (ROADMAP Queue 3), as
+# tests/test_torch_train.py's JUMP_TOL leaf does for the ERP step
+CUBE_JUMP_TOL = {"backbone_erp.CNNEncoder_0.ResidualBlock_1.Conv_1.weight": 3.5e-3}
 # the spans timed in phase 4 (blocks of a heavy tile's segment or walk one
 # work item takes; None: one span a tile)
 SPANS = (1, 4, 16, 64, None)
@@ -148,26 +169,36 @@ def bench_scene(seed: int, n: int, sh_degree: int = 4):
     return t["means"], covs, t["sh"], t["opac"]
 
 
-def render_inputs(means, covs, sh, opac, c2ws, near):
-    """attrs [V, N, 16], gidx, starts, counts and the tiling of V ERP views,
-    built as render_erp_batch builds them."""
-    from splatter360_tpu_torch.ops.cuda.composite import build_attrs
-    from splatter360_tpu_torch.ops.projection import project_erp, sh_colors
-    from splatter360_tpu_torch.ops.tiling import assign_tiles
+def view_batch(means, c2ws, near, face=None):
+    """batch_inputs' arguments for the ERP views c2ws or, with `face`, the 6
+    cube faces of each (decoder.cube_face_batch): (c2w, image shape, near,
+    far, keywords)."""
+    from splatter360_tpu_torch.models.decoder import cube_face_batch
 
-    attrs, asg = [], []
-    for c2w in c2ws:
-        proj = project_erp(means, covs, c2w, (H, W), near, opacities=opac)
-        colors = sh_colors(sh, means, c2w[:3, 3], 4)
-        asg.append(assign_tiles(proj, (H, W), wrap_x=True))
-        attrs.append(build_attrs(proj.mean2d, proj.conic, colors, opac, proj.depth, proj.radius))
+    c2w = torch.stack(list(c2ws))
+    near = torch.full((c2w.shape[0],), near, device=means.device)
+    if face is None:
+        return c2w, (H, W), near, 10 * near, {}
+    c2w, nr, fr, kw = cube_face_batch(c2w, near, 10 * near, means.shape[0])
+    return c2w, (face, face), nr, fr, kw
+
+
+def render_inputs(means, covs, sh, opac, c2ws, near, face=None):
+    """attrs [V, N, 16], gidx, starts, counts and the tiling of the ERP views
+    c2ws or, with `face`, of the 6 cube faces of each, as render_batch
+    builds them (batch_inputs)."""
+    from splatter360_tpu_torch.ops.rasterizer import batch_inputs
+
+    c2w, shape, nr, fr, kw = view_batch(means, c2ws, near, face)
+    with torch.no_grad():
+        attrs, asg, wrap = batch_inputs(means, covs, sh, opac, c2w, shape, nr, fr, **kw)
     return dict(
-        attrs=torch.stack(attrs),
+        attrs=attrs,
         gidx=torch.stack([a.gaussian_idx for a in asg]),
         tile_ids=torch.stack([a.tile_ids for a in asg]),
         starts=torch.stack([a.tile_starts for a in asg]),
         counts=torch.stack([a.tile_counts for a in asg]),
-        nty=asg[0].num_tiles_y, ntx=asg[0].num_tiles_x,
+        nty=asg[0].num_tiles_y, ntx=asg[0].num_tiles_x, shape=shape, wrap=wrap,
         dropped=[int(a.dropped) for a in asg],
     )
 
@@ -186,7 +217,8 @@ def fwd_calls(inp, unfused=False):
     inp["inst"]."""
     from splatter360_tpu_torch.ops.cuda import composite as comp
 
-    seg = (inp["starts"], inp["counts"], inp["nty"], inp["ntx"], float(W), True)
+    seg = (inp["starts"], inp["counts"], inp["nty"], inp["ntx"], float(inp["shape"][1]),
+           inp["wrap"])
     if unfused:
         return (lambda **kw: comp.composite_forward_unfused(inp["inst"], *seg, **kw),
                 lambda **kw: comp.composite_forward_unfused_plain(inp["inst"], *seg, **kw))
@@ -237,8 +269,8 @@ def compare_kernel_plain(inp, label, unfused=False, span=None, exact=False):
     torch.cuda.synchronize()
     stats["plain_ms"] = 1e3 * (time.perf_counter() - t0)
     bg = torch.zeros(3, device="cuda")
-    rk, ak, dk = compose_planes(pk, (H, W), inp["nty"], inp["ntx"], bg)
-    rp, ap, dp = compose_planes(pp, (H, W), inp["nty"], inp["ntx"], bg)
+    rk, ak, dk = compose_planes(pk, inp["shape"], inp["nty"], inp["ntx"], bg)
+    rp, ap, dp = compose_planes(pp, inp["shape"], inp["nty"], inp["ntx"], bg)
     err_rgb = float((rk - rp).abs().max())
     err_a = float((ak - ap).abs().max())
     err_d = float((dk - dp).abs().max())
@@ -281,16 +313,13 @@ def bound_ms(inp, stats, unfused=False):
 def bwd_args(inp, seed):
     """The backward's inputs for `inp`: the kernel's forward planes (equal to
     the plain version's) and a seeded normal cotangent on planes 0-4."""
-    from splatter360_tpu_torch.ops.cuda.composite import composite_forward
-
-    planes = composite_forward(inp["attrs"], inp["gidx"], inp["starts"], inp["counts"],
-                               inp["nty"], inp["ntx"], float(W), True)
+    planes = fwd_calls(inp)[0]()
     gen = torch.Generator(device="cuda").manual_seed(seed)
     g_planes = torch.zeros_like(planes)
     g_planes[:, :, :5] = torch.randn(planes[:, :, :5].shape, generator=gen, device="cuda")
     return (inp["attrs"], inp["gidx"], inp["starts"], inp["counts"], g_planes,
             planes[:, :, 5].contiguous(), planes[:, :, 6, 0].to(torch.int32),
-            inp["nty"], inp["ntx"], float(W), True)
+            inp["nty"], inp["ntx"], float(inp["shape"][1]), inp["wrap"])
 
 
 def compare_bwd_plain(inp, label, seed, span):
@@ -361,15 +390,14 @@ def unfused_bwd_args(inp, seed):
     """The unfused backward's inputs for with_inst(inp): the unfused
     kernel's forward planes (equal to the plain version's) and a seeded
     normal cotangent on planes 0-4."""
-    from splatter360_tpu_torch.ops.cuda.composite import composite_forward_unfused
-
     seg = (inp["starts"], inp["counts"])
-    planes = composite_forward_unfused(inp["inst"], *seg, inp["nty"], inp["ntx"], float(W), True)
+    planes = fwd_calls(inp, unfused=True)[0]()
     gen = torch.Generator(device="cuda").manual_seed(seed)
     g_planes = torch.zeros_like(planes)
     g_planes[:, :, :5] = torch.randn(planes[:, :, :5].shape, generator=gen, device="cuda")
     return (inp["inst"], *seg, g_planes, planes[:, :, 5].contiguous(),
-            planes[:, :, 6, 0].to(torch.int32), inp["nty"], inp["ntx"], float(W), True)
+            planes[:, :, 6, 0].to(torch.int32), inp["nty"], inp["ntx"], float(inp["shape"][1]),
+            inp["wrap"])
 
 
 def row_errors(got, ref):
@@ -526,7 +554,10 @@ def region_visits(inp, nproc, label):
     row = inp["attrs"][view[:, None], g]  # [B, 128, 16]
     x0 = ((tile % inp["ntx"]) * 128).float()[:, None]
     y0 = ((tile // inp["ntx"]) * 16).float()[:, None]
-    u = row[..., 0] + W * torch.round((x0 + 64.0 - row[..., 0]) / W)
+    w_img = inp["shape"][1]
+    u = row[..., 0]
+    if inp["wrap"]:
+        u = u + w_img * torch.round((x0 + 64.0 - u) / w_img)
     du, dv, rx, ry = u - x0, row[..., 1] - y0, row[..., 10], row[..., 11]
     hit = ok & (du + rx + 1 >= 0) & (du - rx - 1 <= 127) & (dv + ry + 1 >= 0) & (dv - ry - 1 <= 15)
     xa = ((du - rx - 1).clamp(min=0).floor() / 32).floor()
@@ -678,6 +709,74 @@ def phase_unfused_bwd_check(check, seed):
     return dict(inp=check["inp"], **res)
 
 
+@phase("2e. both kernel pairs at wrap_x=False on the 6 cube faces of the flagship scenes, "
+       "default span and span 1; the wrap flag on a 512x1024 pinhole view")
+def phase_pinhole_check(seed):
+    """The flagship scenes (2 and 3 context panoramas' N) rendered to the 6
+    256x256 faces of one pose: the fused pair on the first, the unfused pair
+    on the second, each forward bit for bit against its plain version with
+    the threshold's floor off, each backward per row, at the default span
+    and at span 1 (the unfused forward also bit-equal to the fused one)."""
+    from splatter360_tpu_torch.ops.cuda.composite import BWD_SPAN
+
+    res = {}
+    for n_ctx in (N_CTX, N_CTX3):
+        means, covs, sh, opac = bench_scene(seed, n_ctx * H * W)
+        unfused = n_ctx == N_CTX3
+        inp = render_inputs(means, covs, sh, opac, [torch.eye(4, device="cuda")], 0.1, FACE)
+        inp = with_inst(inp) if unfused else inp
+        label = f"{n_ctx}-view bench scene, 6 faces{', unfused' if unfused else ''}"
+        print(f"[{label}] N={means.shape[0]} K={inp['gidx'].shape[1]} dropped={inp['dropped']}")
+        with slots_rule_only():
+            fwd = [compare_kernel_plain(inp, label, unfused=unfused, span=span, exact=True)
+                   for span in (None, 1)]
+            if unfused:
+                for span in (None, 1):
+                    max_fused_difference(inp, label, span)
+        compare = compare_unfused_bwd_plain if unfused else compare_bwd_plain
+        bwd = dict(inp=inp, **at_spans(lambda span: compare(inp, label, seed + 2, span),
+                                       (BWD_SPAN, 1)))
+        for r in (bwd, *bwd["by_span"].values()):
+            r.pop("dout", None)
+        res[n_ctx] = dict(inp=inp, stats=fwd[0][1], bwd=bwd, err=max(fwd[0][0], fwd[1][0]))
+    res["wrap"] = wrap_flag_check(seed)
+    return moved(res, "cpu")
+
+
+def wrap_flag_check(seed):
+    """One launch of a 512x1024 pinhole view (square pixels, fx = W / 2) of
+    the flagship scene, binned with the wrap so that a splat on a side edge
+    is listed in both edge tiles, at wrap_x=True and at wrap_x=False: the
+    alphas must differ near both side edges (the flag reaches the kernel).
+    Splats just past the near plane span the whole width, so the middle
+    may differ too; printed, not held."""
+    from splatter360_tpu_torch.ops import rasterizer as rz
+    from splatter360_tpu_torch.ops.cuda.composite import compose_planes, composite_forward
+
+    means, covs, sh, opac = bench_scene(seed, N_CTX * H * W)
+    c2w = torch.eye(4, device="cuda")[None]
+    near = torch.full((1,), 0.1, device="cuda")
+    intr = torch.tensor([[0.5, 0.0, 0.5], [0.0, 0.5 * W / H, 0.5], [0.0, 0.0, 1.0]],
+                        device="cuda")
+    projs = rz.project_views(means, covs, opac, c2w, (H, W), near, "pinhole", intr)
+    (asg,) = rz.bin_views(projs, (H, W), wrap_x=True)
+    attrs = rz.view_attrs(projs, rz.view_colors(sh, means, c2w, 4), opac, near, 10 * near)
+    seg = (asg.gaussian_idx[None], asg.tile_starts[None], asg.tile_counts[None],
+           asg.num_tiles_y, asg.num_tiles_x, float(W))
+    bg = torch.zeros(3, device="cuda")
+    alpha = {flag: compose_planes(composite_forward(attrs, *seg, flag), (H, W), asg.num_tiles_y,
+                                  asg.num_tiles_x, bg)[1][0] for flag in (False, True)}
+    diff = (alpha[True] - alpha[False]).abs().amax(dim=0)
+    left, right = float(diff[:16].max()), float(diff[-16:].max())
+    middle = float(diff[W // 4: 3 * W // 4].max())
+    print(f"[pinhole {H}x{W}, 1 view] wrap_x True vs False, max |alpha difference| per column: "
+          f"left 16 columns {left:.3e}, right 16 {right:.3e}, middle half {middle:.3e}; "
+          f"columns that differ {int((diff > 0).sum())} of {W}")
+    if not (left > 1e-3 and right > 1e-3):
+        raise AssertionError("the wrap flag does not reach the kernel as it should")
+    return dict(left=left, right=right, middle=middle)
+
+
 def request_data(gen, near=0.1, far=10.0, n_ctx=N_CTX):
     """One request: n_ctx seeded panoramas with poses, N_TGT target poses."""
     dev = torch.device("cuda")
@@ -707,14 +806,15 @@ def path_kernels(n):
     return comp.UNFUSED_KERNEL_NAME, comp.UNFUSED_BWD_KERNEL_NAME
 
 
-def serve_requests(seed, n_ctx):
+def serve_requests(seed, n_ctx, face=None):
     """N_REQUESTS requests of n_ctx context panoramas through the serving
-    entry points; each must launch exactly one forward kernel, of the path
-    its N takes. Returns the launch counts over the run and the last
-    request's Gaussians and target poses."""
+    entry points, rendering N_TGT ERP views or, with `face`, their 6 cube
+    faces each (render_cube_views); each must launch exactly one forward
+    kernel, of the path its N takes. Returns the launch counts over the run
+    and the last request's Gaussians and target poses."""
     from splatter360_tpu_torch.models.encoder import HM3D
     from splatter360_tpu_torch.ops.cuda import composite as comp
-    from splatter360_tpu_torch.serve import build_model, encode, render_erp_views
+    from splatter360_tpu_torch.serve import build_model, encode, render_cube_views, render_erp_views
 
     fwd_name, _ = path_kernels(n_ctx * H * W)
     model = build_model(HM3D, seed=seed, device="cuda")
@@ -732,31 +832,37 @@ def serve_requests(seed, n_ctx):
         gaussians, depth_map = encode(model, r["image"], r["ctx_pose"], r["near"], r["far"])
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        out = render_erp_views(gaussians, r["tgt_pose"], r["tgt_near"], r["tgt_far"],
-                               (H, W), render_depth=True)
+        if face is None:
+            out = render_erp_views(gaussians, r["tgt_pose"], r["tgt_near"], r["tgt_far"],
+                                   (H, W), render_depth=True)
+        else:
+            out = render_cube_views(gaussians, r["tgt_pose"], r["tgt_near"], r["tgt_far"], face,
+                                    render_depth=True)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
         delta = {k: comp.launch_counts[k] - before[k] for k in before}
         n = gaussians.means.shape[1]
         times.append((1e3 * (t1 - t0), 1e3 * (t2 - t1)))
+        what = f"{N_TGT} views" if face is None else f"{N_TGT} views x 6 faces of {face}x{face}"
         print(f"request {i}: {n_ctx} context panoramas, encoder {times[-1][0]:.1f} ms, render "
-              f"{N_TGT} views {times[-1][1]:.1f} ms, N={n}, dropped={out.dropped.tolist()}, "
+              f"{what} {times[-1][1]:.1f} ms, N={n}, dropped={out.dropped.tolist()}, "
               f"kernel launches {delta}")
         if n != n_ctx * H * W:
             raise AssertionError(f"expected {n_ctx * H * W} Gaussians, got {n}")
         if delta != {k: int(k == fwd_name) for k in delta}:
-            raise AssertionError(f"expected 1 {fwd_name} launch for {N_TGT} views, got {delta}")
-        check_outputs(gaussians, depth_map, out, r)
+            raise AssertionError(f"expected 1 {fwd_name} launch for {what}, got {delta}")
+        check_outputs(gaussians, depth_map, out, r, face)
     launches = dict(comp.launch_counts)
     print(f"launch counts over the serving run: {launches}")
     return dict(launches=launches, gaussians=gaussians, tgt_pose=reqs[-1]["tgt_pose"][0],
                 times=times)
 
 
-def target_inputs(gaussians, tgt_pose):
-    """render_inputs of one item's Gaussians into its target views."""
+def target_inputs(gaussians, tgt_pose, face=None):
+    """render_inputs of one item's Gaussians into its target views (or
+    their cube faces)."""
     return render_inputs(gaussians.means[0], gaussians.covariances[0], gaussians.harmonics[0],
-                         gaussians.opacities[0], list(tgt_pose), 0.1)
+                         gaussians.opacities[0], list(tgt_pose), 0.1, face)
 
 
 @phase("3. serve HM3D-width requests")
@@ -779,38 +885,56 @@ def phase_serve3(seed):
     return dict(res, inp=inp, err=err, stats=stats)
 
 
-def render_breakdown(gaussians, c2ws, iters=3):
-    """The render of N_TGT views stage by stage, as render_erp_batch runs it:
-    median ms per stage over `iters` runs (CUDA events)."""
-    from splatter360_tpu_torch.ops.cuda.composite import build_attrs, composite_tiles
-    from splatter360_tpu_torch.ops.projection import project_erp, sh_colors
-    from splatter360_tpu_torch.ops.tiling import assign_tiles
+def moved(x, device):
+    """x with every tensor in it (through dicts, lists, tuples) on `device`:
+    the phases park the inputs phase 4 times on the host, so that the train
+    steps' peaks hold only their own memory and the earlier ERP phases'."""
+    if torch.is_tensor(x):
+        return x.to(device)
+    if isinstance(x, dict):
+        return {k: moved(v, device) for k, v in x.items()}
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(moved(v, device) for v in x))
+    if isinstance(x, (list, tuple)):
+        return type(x)(moved(v, device) for v in x)
+    return x
+
+
+def render_breakdown(gaussians, c2ws, iters=3, face=None):
+    """The render of N_TGT views (or, with `face`, their 6 cube faces each)
+    stage by stage, through the stages batch_inputs runs: median ms per
+    stage over `iters` runs (CUDA events)."""
+    from splatter360_tpu_torch.ops import rasterizer as rz
+    from splatter360_tpu_torch.ops.cuda.composite import composite_tiles
 
     means, covs, sh, opac = (x[0] for x in gaussians)
     bg = torch.zeros(3, device="cuda")
-    stages = ("projection + SH colours", "binning (assign_tiles)", "attribute table",
+    c2w, shape, nr, fr, kw = view_batch(means, c2ws, 0.1, face)
+    wrap = face is None
+    stages = ("projection", "SH colours", "binning (assign_tiles)", "attribute table",
               "compositor (kernel + compose)")
     times = {s: [] for s in stages}
     for _ in range(iters + 1):  # the first run warms up
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(stages) + 1)]
         ev[0].record()
-        projs = [project_erp(means, covs, c2w, (H, W), 0.1, opacities=opac) for c2w in c2ws]
-        colors = [sh_colors(sh, means, c2w[:3, 3], 4) for c2w in c2ws]
+        projs = rz.project_views(means, covs, opac, c2w, shape, nr, kw.get("camera_kind", "erp"),
+                                 kw.get("intrinsics"))
         ev[1].record()
-        asg = [assign_tiles(p, (H, W), wrap_x=True) for p in projs]
+        colors = rz.view_colors(sh, means, c2w, 4, kw.get("views_per_position", 1))
         ev[2].record()
-        attrs = torch.stack([build_attrs(p.mean2d, p.conic, c, opac, p.depth, p.radius)
-                             for p, c in zip(projs, colors)])
+        asg = rz.bin_views(projs, shape, wrap, kw.get("instance_cap"))
         ev[3].record()
-        composite_tiles(asg, attrs, (H, W), bg, wrap_x=True)
+        attrs = rz.view_attrs(projs, colors, opac, nr, fr)
         ev[4].record()
+        composite_tiles(asg, attrs, shape, bg, wrap_x=wrap)
+        ev[5].record()
         torch.cuda.synchronize()
         for i, s in enumerate(stages):
             times[s].append(ev[i].elapsed_time(ev[i + 1]))
     return {s: float(np.median(t[1:])) for s, t in times.items()}
 
 
-def check_outputs(gaussians, depth_map, out, r):
+def check_outputs(gaussians, depth_map, out, r, face=None):
     near, far = float(r["near"].min()), float(r["far"].max())
     for name, x in (("means", gaussians.means), ("covariances", gaussians.covariances),
                     ("harmonics", gaussians.harmonics), ("opacities", gaussians.opacities),
@@ -818,7 +942,9 @@ def check_outputs(gaussians, depth_map, out, r):
                     ("depth", out.depth)):
         if not bool(torch.isfinite(x).all()):
             raise AssertionError(f"non-finite {name}")
-    assert tuple(out.color.shape) == (1, N_TGT, H, W, 3), out.color.shape
+    image = (H, W) if face is None else (6, face, face)
+    assert tuple(out.color.shape) == (1, N_TGT, *image, 3), out.color.shape
+    assert tuple(out.dropped.shape) == (1, N_TGT, *image[:-2]), out.dropped.shape
     assert tuple(depth_map.shape) == (1, r["image"].shape[1], H, W), depth_map.shape
     assert float(depth_map.min()) >= near - 1e-5 and float(depth_map.max()) <= far + 1e-4
     assert float(out.alpha.min()) >= -1e-6 and float(out.alpha.max()) <= 1.0 + 1e-6
@@ -912,27 +1038,42 @@ def train_batch(gen, near=0.1, far=10.0, n_ctx=N_CTX):
 STAGES = ("encoder", "render", "losses", "backward", "optimizer")
 
 
-def train_steps(seed, n_ctx):
-    """N_STEPS HM3D-width train steps with n_ctx context panoramas: per-step
+def train_steps(seed, n_ctx, face=None, n_steps=N_STEPS, remat=False):
+    """n_steps HM3D-width train steps with n_ctx context panoramas, ERP
+    supervision or, with `face`, cube supervision (faces of face x face,
+    remat_faces off, as configs/hm3d.yaml sets it; with `remat`, the
+    default TrainConfig(): cube supervision with remat_faces): per-step
     metrics, CUDA-event stage times (and the backward kernel's, and on the
     unfused path the scatter's, inside the backward), kernel calls (exactly
-    one forward and one backward of the path N takes) and peak memory; then
-    the backward kernel against its plain version on the last step's
-    Gaussians rendered into its N_TGT target views; the first step's
-    Gaussians and backward inputs kept for phase 4."""
+    one forward and one backward of the path N takes; under remat_faces one
+    launch of each per target view and the forwards again in the backward)
+    and peak memory; then the backward kernel against its plain version on
+    the last step's Gaussians rendered into its N_TGT target views (or their
+    faces; under remat_faces the 6 faces of one view, one checkpointed
+    launch); on the ERP path the first step's Gaussians and backward inputs
+    kept for phase 4."""
     from splatter360_tpu_torch.models.encoder import HM3D
     from splatter360_tpu_torch.ops.cuda import composite as comp
     from splatter360_tpu_torch.train.state import TrainConfig, create_train_state, train_step
 
     fwd_name, bwd_name = path_kernels(n_ctx * H * W)
     unfused = fwd_name == comp.UNFUSED_KERNEL_NAME
-    state = create_train_state(HM3D, TrainConfig(), seed=seed, device="cuda")
+    if face is None:
+        cfg = TrainConfig(supervision="erp")
+    elif remat:
+        cfg = TrainConfig()
+        assert cfg.supervision == "cubes" and cfg.remat_faces and cfg.cube_face_size is None
+    else:
+        cfg = TrainConfig(supervision="cubes", remat_faces=False)
+    n_fwd, n_bwd = (2 * N_TGT, N_TGT) if remat else (1, 1)
+    state = create_train_state(HM3D, cfg, seed=seed, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(seed + 3)
-    batches = [train_batch(gen, n_ctx=n_ctx) for _ in range(N_STEPS)]
+    batches = [train_batch(gen, n_ctx=n_ctx) for _ in range(n_steps)]
     # the first step's Gaussians before any update, where the random weights
     # pile instances into a few tiles (timed in phase 4)
-    first = step_inputs(state, batches[0], unfused)
+    first = step_inputs(state, batches[0], unfused) if face is None else None
     torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() / 2**30
 
     # CUDA events around the backward kernel's calls (and the scatter's)
     # inside each step
@@ -984,21 +1125,23 @@ def train_steps(seed, n_ctx):
             delta = {k: comp.launch_counts[k] - calls[k] for k in calls}
             vals = {k: float(v) for k, v in metrics.items()}
             peak = torch.cuda.max_memory_allocated() / 2**30
-            print(f"step {i} ({n_ctx} context panoramas): "
+            print(f"step {i} ({n_ctx} context panoramas, {cfg.supervision} supervision): "
                   + ", ".join(f"{k} {v:.6g}" for k, v in sorted(vals.items()))
                   + f"; {wall:.1f} ms: " + ", ".join(f"{k} {v:.1f}" for k, v in ms.items())
-                  + f"; kernel calls {delta}; peak memory {peak:.2f} GiB", flush=True)
+                  + f"; kernel calls {delta}; peak memory {peak:.2f} GiB ({held:.2f} GiB held "
+                  f"by earlier phases)", flush=True)
             if not all(math.isfinite(v) for v in vals.values()):
                 raise AssertionError(f"step {i}: non-finite metrics {vals}")
-            if delta != {k: int(k in (fwd_name, bwd_name)) for k in delta}:
-                raise AssertionError(f"step {i}: expected 1 {fwd_name} and 1 {bwd_name} call, "
-                                     f"got {delta}")
+            if delta != {k: n_fwd if k == fwd_name else n_bwd if k == bwd_name else 0
+                         for k in delta}:
+                raise AssertionError(f"step {i}: expected {n_fwd} {fwd_name} and {n_bwd} "
+                                     f"{bwd_name} calls, got {delta}")
             still = [n for n, p in state.model.named_parameters() if torch.equal(p, before[n])]
             if still:
                 raise AssertionError(f"step {i}: parameters unchanged: {still[:10]}")
             if not all(bool(torch.isfinite(p).all()) for p in state.model.parameters()):
                 raise AssertionError(f"step {i}: non-finite parameters")
-            steps.append(dict(wall=wall, ms=ms, peak_gib=peak, **vals))
+            steps.append(dict(wall=wall, ms=ms, peak_gib=peak, held_gib=held, **vals))
     finally:
         for label, name in timed.items():
             setattr(comp, name, originals[label])
@@ -1007,21 +1150,27 @@ def train_steps(seed, n_ctx):
 
     # the last step's Gaussians, rendered into its target views: backward
     # kernel vs plain at the training shapes
-    inp = step_inputs(state, batches[-1], unfused)
+    views = 1 if remat else N_TGT
+    inp = step_inputs(state, batches[-1], unfused, face, views)
     del state
-    label = f"train-step Gaussians ({n_ctx} context panoramas), {N_TGT} views"
+    label = f"train-step Gaussians ({n_ctx} context panoramas), {views} views"
+    if face is not None:
+        label += " x 6 faces" + (", one checkpointed launch" if remat else "")
     if unfused:
         res = compare_unfused_bwd_plain(inp, label, seed + 4, comp.BWD_SPAN)
     else:
         res = compare_bwd_plain(inp, label, seed + 4, comp.BWD_SPAN)
+    if first is None:
+        return dict(steps=steps, launches=launches, inp=inp, **res)
     first_args = (unfused_bwd_args if unfused else bwd_args)(first, seed + 4)
     return dict(steps=steps, launches=launches, inp=inp, first=dict(inp=first, args=first_args),
                 **res)
 
 
-def step_inputs(state, batch, unfused):
+def step_inputs(state, batch, unfused, face=None, views=N_TGT):
     """render_inputs of the Gaussians state's model makes from the batch's
-    context, into the batch's target views (with_inst on the unfused path)."""
+    context, into the batch's first `views` target views or their faces
+    (with_inst on the unfused path)."""
     from splatter360_tpu_torch.models.types import Gaussians
     from splatter360_tpu_torch.serve import context_cubes
 
@@ -1031,7 +1180,7 @@ def step_inputs(state, batch, unfused):
                            ctx["extrinsics_sphere"], ctx["near"], ctx["far"], state.step)
     g = Gaussians(*(x[0] for x in g))
     inp = render_inputs(g.means, g.covariances, g.harmonics, g.opacities,
-                        list(tgt["extrinsics_sphere"][0]), 0.1)
+                        list(tgt["extrinsics_sphere"][0, :views]), 0.1, face)
     return with_inst(inp) if unfused else inp
 
 
@@ -1046,10 +1195,12 @@ def phase_train3(seed):
     return train_steps(seed, N_CTX3)
 
 
-def small_train(seed, n_ctx):
+def small_train(seed, n_ctx, supervision="erp"):
     """A GPU and a CPU train step at 64x256 with n_ctx context panoramas
-    from the same seeded weights and batch: the loss at 1e-3 relative, each
-    leaf's gradient within GRAD_TOL of the global max|g|."""
+    from the same seeded weights and batch, ERP or cube supervision (32x32
+    faces): the loss at 1e-3 relative, each leaf's gradient within GRAD_TOL
+    of the global max|g|, the leaf CUBE_JUMP_TOL names (cube supervision
+    only) within its bound."""
     from splatter360_tpu_torch.models.adapter import GaussianAdapterConfig
     from splatter360_tpu_torch.models.encoder import EncoderConfig
     from splatter360_tpu_torch.ops.cuda import composite as comp
@@ -1072,9 +1223,10 @@ def small_train(seed, n_ctx):
         depth[rng.uniform(size=depth.shape) < 0.05] = 0.0
         batch[part] = dict(image_sphere=rng.uniform(0, 1, (1, v, h, w, 3)), extrinsics_sphere=pose,
                            depth_sphere=depth, near=np.full((1, v), 0.1), far=np.full((1, v), 10.0))
+    tcfg = TrainConfig(supervision=supervision, remat_faces=False)
     out = {}
     for dev in ("cpu", "cuda"):
-        state = create_train_state(cfg, TrainConfig(), seed=seed, device=dev)
+        state = create_train_state(cfg, tcfg, seed=seed, device=dev)
         grads = {}
 
         def keep(stage):
@@ -1090,7 +1242,8 @@ def small_train(seed, n_ctx):
                                  f"got {delta}")
         out[dev] = ({k: float(v) for k, v in metrics.items()}, grads)
     (m_cpu, g_cpu), (m_gpu, g_gpu) = out["cpu"], out["cuda"]
-    print(f"  {n_ctx} context panoramas, kernels {fwd_name}, {bwd_name}; metrics cpu / gpu: "
+    print(f"  {n_ctx} context panoramas, {supervision} supervision, kernels {fwd_name}, "
+          f"{bwd_name}; metrics cpu / gpu: "
           + ", ".join(f"{k} {m_cpu[k]:.6g} / {m_gpu[k]:.6g}" for k in sorted(m_cpu)))
     scale = max(float(g.abs().max()) for g in g_cpu.values())
     worst = max((float((g_gpu[k] - g).abs().max()) / scale, k) for k, g in g_cpu.items())
@@ -1100,8 +1253,13 @@ def small_train(seed, n_ctx):
     # cuDNN sums in another order than the CPU (~1e-4 of max|x| in the
     # encoder, phase 3b): the loss is held at 1e-3 relative, each leaf's
     # gradient within 2e-3 of the global max|g|
-    if rel_loss > 1e-3 or worst[0] > GRAD_TOL:
-        raise AssertionError("GPU train step differs from the CPU one")
+    bars = CUBE_JUMP_TOL if supervision == "cubes" else {}
+    stray = {k: float((g_gpu[k] - g).abs().max()) / scale for k, g in g_cpu.items()}
+    for k in bars:
+        print(f"  leaf {k}: {stray[k]:.2e} of max|g| (bar {bars[k]:g})")
+    stray = {k: d for k, d in stray.items() if d > bars.get(k, GRAD_TOL)}
+    if rel_loss > 1e-3 or stray:
+        raise AssertionError(f"GPU train step differs from the CPU one: {stray}")
 
 
 @phase("3d. GPU train step vs CPU train step, small input")
@@ -1122,8 +1280,101 @@ def phase_small_train3(seed):
         comp.FUSED_TABLE_BUDGET = budget
 
 
+@phase("3h. serve HM3D-width requests to cube faces: 2 context panoramas, then 3 (unfused)")
+def phase_serve_cubes(seed):
+    """N_REQUESTS requests of each: encode -> serve.render_cube_views, the 6
+    256x256 faces of 4 target views with depth; the kernel against its
+    plain version on the last request's face inputs."""
+    out = {}
+    for n_ctx in (N_CTX, N_CTX3):
+        res = serve_requests(seed, n_ctx, FACE)
+        unfused = n_ctx == N_CTX3
+        inp = target_inputs(res["gaussians"], res["tgt_pose"], FACE)
+        inp = with_inst(inp) if unfused else inp
+        err, stats = compare_kernel_plain(
+            inp, f"{n_ctx}-view encoder Gaussians, {N_TGT} views x 6 faces", unfused=unfused)
+        out[n_ctx] = moved(dict(res, inp=inp, err=err, stats=stats), "cpu")
+    return out
+
+
+@phase("3i. HM3D-width train steps with cube supervision: 2 context panoramas, then 3 (unfused)")
+def phase_train_cubes(seed):
+    out = {}
+    for n_ctx, n_steps in ((N_CTX, N_STEPS), (N_CTX3, N_STEPS - 1)):
+        torch.cuda.empty_cache()
+        res = train_steps(seed, n_ctx, FACE, n_steps)
+        res.pop("dout", None)
+        out[n_ctx] = moved(res, "cpu")
+    return out
+
+
+@phase("3k. HM3D-width cube train steps with the default TrainConfig() (remat_faces), "
+       "2 context panoramas")
+def phase_train_remat(seed, ctrain):
+    """The train step TrainConfig() names: cube supervision with
+    remat_faces, one checkpointed compositor launch per target view. Its
+    peak, less what earlier phases hold, must stay below that of phase 3i's
+    step on the same path, which renders all 24 faces in one launch."""
+    torch.cuda.empty_cache()
+    res = train_steps(seed, N_CTX, FACE, N_STEPS - 1, remat=True)
+    res.pop("dout", None)
+    own = max(st["peak_gib"] - st["held_gib"] for st in res["steps"])
+    print(f"remat_faces: peak {own:.2f} GiB over what earlier phases hold", end="")
+    if ctrain.get(N_CTX) is not None:
+        whole = max(st["peak_gib"] - st["held_gib"] for st in ctrain[N_CTX]["steps"])
+        print(f"; one launch of 24 faces (phase 3i): {whole:.2f} GiB")
+        if not own < whole:
+            raise AssertionError("remat_faces does not lower the cube step's peak")
+    print(flush=True)
+    return moved(res, "cpu")
+
+
+@phase("3j. GPU cube train step vs CPU cube train step, small input, fused then unfused path")
+def phase_small_train_cubes(seed):
+    from splatter360_tpu_torch.ops.cuda import composite as comp
+
+    small_train(seed, N_CTX, "cubes")
+    budget = comp.FUSED_TABLE_BUDGET
+    comp.FUSED_TABLE_BUDGET = comp.fused_table_bytes(N_CTX3 * 64 * 256) - 1
+    try:
+        small_train(seed, N_CTX3, "cubes")
+    finally:
+        comp.FUSED_TABLE_BUDGET = budget
+
+
+def fwd_row(label, res, unfused):
+    """A forward kernel's row on res["inp"]: its ms (CUDA events), the plain
+    version's ms and the bound from res["stats"] (compare_kernel_plain's)."""
+    inp = res["inp"]
+    ms = time_cuda(fwd_calls(inp, unfused)[0], iters=20)
+    plain_ms = res["stats"]["plain_ms"]
+    b_ms, b_by, ops_ms, bytes_ms = bound_ms(inp, res["stats"], unfused)
+    print(f"[{label}] kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, bound {b_ms:.4f} ms "
+          f"set by {b_by} (operations {ops_ms:.4f} ms, bytes {bytes_ms:.4f} ms), "
+          f"blocks {res['stats']['blocks_processed']}, "
+          f"gated pairs {res['stats']['pairs_alive']}")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+
+
+def bwd_row(label, res, unfused):
+    """A backward kernel's row on res["args"] (compare_bwd_plain's or
+    compare_unfused_bwd_plain's): its ms at BWD_SPAN, the plain version's ms
+    and the bound from res["stats"]."""
+    from splatter360_tpu_torch.ops.cuda import composite as comp
+
+    args, inp = res["args"], res["inp"]
+    backward = comp.composite_backward_unfused if unfused else comp.composite_backward
+    ms = time_cuda(lambda: backward(*args), iters=10)
+    b_ms, b_by, ops_ms, bytes_ms = bwd_bound_ms(inp, res["stats"], unfused)
+    print(f"[{label}] kernel {ms:.3f} ms (span {comp.BWD_SPAN}), plain {res['plain_ms']:.1f} "
+          f"ms, bound {b_ms:.4f} ms set by {b_by} (operations {ops_ms:.4f} ms, bytes "
+          f"{bytes_ms:.4f} ms), {res['stats']}")
+    return dict(ms=ms, plain_ms=res["plain_ms"], bound_ms=b_ms, bound_by=b_by)
+
+
 @phase("4. timing")
-def phase_timing(check, serve, bcheck, train, ucheck, ubcheck, serve3, train3):
+def phase_timing(check, serve, bcheck, train, ucheck, ubcheck, serve3, train3, pin, cserve,
+                 ctrain, cremat):
     from splatter360_tpu_torch.ops.cuda import composite as comp
 
     rows = {}
@@ -1134,14 +1385,8 @@ def phase_timing(check, serve, bcheck, train, ucheck, ubcheck, serve3, train3):
         if res is None:
             continue
         inp = res["inp"]
-        ms = time_cuda(fwd_calls(inp, unfused)[0], iters=20)
-        plain_ms = res["stats"]["plain_ms"]
-        b_ms, b_by, ops_ms, bytes_ms = bound_ms(inp, res["stats"], unfused)
-        print(f"[{label}] kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, bound {b_ms:.4f} ms "
-              f"set by {b_by} (operations {ops_ms:.4f} ms, bytes {bytes_ms:.4f} ms), "
-              f"blocks {res['stats']['blocks_processed']}, "
-              f"gated pairs {res['stats']['pairs_alive']}")
-        rows[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+        rows[label] = fwd_row(label, res, unfused)
+        ms = rows[label]["ms"]
         if unfused:
             # what the JAX threshold costs here: the fused kernel on the same
             # Gaussians, against the unfused path's pack + kernel
@@ -1159,12 +1404,8 @@ def phase_timing(check, serve, bcheck, train, ucheck, ubcheck, serve3, train3):
             continue
         args, inp = res["args"], res["inp"]
         backward = comp.composite_backward_unfused if unfused else comp.composite_backward
-        ms = time_cuda(lambda: backward(*args), iters=10)
-        b_ms, b_by, ops_ms, bytes_ms = bwd_bound_ms(inp, res["stats"], unfused)
-        print(f"[{label}] kernel {ms:.3f} ms (span {comp.BWD_SPAN}), plain {res['plain_ms']:.1f} "
-              f"ms, bound {b_ms:.4f} ms set by {b_by} (operations {ops_ms:.4f} ms, bytes "
-              f"{bytes_ms:.4f} ms), {res['stats']}")
-        rows[label] = dict(ms=ms, plain_ms=res["plain_ms"], bound_ms=b_ms, bound_by=b_by)
+        rows[label] = bwd_row(label, res, unfused)
+        ms = rows[label]["ms"]
         at = 5 if unfused else 6  # nproc
         rep = nproc_report(args[at], label)
         region_visits(inp, args[at], label)
@@ -1200,6 +1441,34 @@ def phase_timing(check, serve, bcheck, train, ucheck, ubcheck, serve3, train3):
                   f"scatter) {ms + scatter_ms:.3f} ms; the fused backward kernel on the same "
                   f"inputs {fused_ms:.3f} ms")
             rows[label].update(scatter_ms=scatter_ms, fused_ms=fused_ms)
+    # the cube path's inputs: the flagship scenes' 6 faces (phase 2e), the
+    # cube serving requests (3h) and the cube train steps (3i); and the
+    # forward on the train steps' inputs of both paths, with its bound
+    pin, cserve, ctrain = (moved(x or {}, "cuda") for x in (pin, cserve, ctrain))
+    cremat = moved(cremat, "cuda")
+    for label, res, unfused in (("flagship 6 faces", pin.get(N_CTX), False),
+                                ("unfused 3-view flagship 6 faces", pin.get(N_CTX3), True),
+                                ("cube serving 24 faces", cserve.get(N_CTX), False),
+                                ("unfused cube serving 24 faces", cserve.get(N_CTX3), True)):
+        if res is not None:
+            rows[label] = fwd_row(label, res, unfused)
+    for label, res, unfused in (("train 4 views", train, False),
+                                ("unfused train 4 views", train3, True),
+                                ("cube train 24 faces", ctrain.get(N_CTX), False),
+                                ("unfused cube train 24 faces", ctrain.get(N_CTX3), True)):
+        if res is not None:
+            _, stats = compare_kernel_plain(res["inp"], f"forward, {label}", unfused=unfused)
+            rows[f"forward {label}"] = fwd_row(f"forward {label}", dict(res, stats=stats), unfused)
+    for label, res, unfused in (
+            ("backward flagship 6 faces", pin.get(N_CTX, {}).get("bwd"), False),
+            ("unfused backward 3-view flagship 6 faces", pin.get(N_CTX3, {}).get("bwd"), True),
+            ("backward cube train 24 faces", ctrain.get(N_CTX), False),
+            ("unfused backward cube train 24 faces", ctrain.get(N_CTX3), True),
+            ("backward cube train 6 faces (remat_faces launch)", cremat, False)):
+        if res is not None:
+            rows[label] = bwd_row(label, res, unfused)
+            at = 5 if unfused else 6
+            nproc_report(res["args"][at], label)
     # the forward by span on the flagship scene, the serving inputs and the
     # train steps' Gaussians (the last step's and the first step's)
     for label, res, unfused in (("flagship 1 view", check, False),
@@ -1215,10 +1484,13 @@ def phase_timing(check, serve, bcheck, train, ucheck, ubcheck, serve3, train3):
                    iters=20 if "flagship" in label else 3)
         if "first" in res:
             fwd_report(res["first"]["inp"], f"forward, {label}, step 0 Gaussians", unfused)
-    if serve is not None:
-        parts = render_breakdown(serve["gaussians"], list(serve["tgt_pose"]))
-        print(f"[render breakdown, {N_TGT} views] " +
-              ", ".join(f"{s} {t:.3f} ms" for s, t in parts.items()))
+    for label, res, face in (("4 views", serve, None),
+                             ("4 views x 6 faces", cserve.get(N_CTX), FACE),
+                             ("3-view, 4 views x 6 faces", cserve.get(N_CTX3), FACE)):
+        if res is not None:
+            parts = render_breakdown(res["gaussians"], list(res["tgt_pose"]), face=face)
+            print(f"[render breakdown, {label}] " +
+                  ", ".join(f"{s} {t:.3f} ms" for s, t in parts.items()))
     return rows
 
 
@@ -1239,6 +1511,7 @@ def main():
     bcheck = phase_bwd_check(check, args.seed) if check is not None else None
     ucheck = phase_unfused_check(args.seed) if built else None
     ubcheck = phase_unfused_bwd_check(ucheck, args.seed) if ucheck is not None else None
+    pin = phase_pinhole_check(args.seed) if built else None
     serve = phase_serve(args.seed)
     phase_small_reference(args.seed)
     train = phase_train(args.seed)
@@ -1246,14 +1519,25 @@ def main():
     serve3 = phase_serve3(args.seed)
     train3 = phase_train3(args.seed)
     phase_small_train3(args.seed)
-    rows = phase_timing(check, serve, bcheck, train, ucheck, ubcheck, serve3, train3) or {}
+    cserve = phase_serve_cubes(args.seed) or {}
+    ctrain = phase_train_cubes(args.seed) or {}
+    phase_small_train_cubes(args.seed)
+    cremat = phase_train_remat(args.seed, ctrain)
+    rows = phase_timing(check, serve, bcheck, train, ucheck, ubcheck, serve3, train3, pin,
+                        cserve, ctrain, cremat) or {}
     # each path's own kernels, counted over its own run
+    fused = ("composite_forward_fused", "composite_backward_fused")
+    unfused = ("composite_forward_unfused", "composite_backward_unfused")
     for label, res, names in (
-            ("serving", serve, ("composite_forward_fused",)),
-            ("training", train, ("composite_forward_fused", "composite_backward_fused")),
-            ("3-view serving", serve3, ("composite_forward_unfused",)),
-            ("3-view training", train3, ("composite_forward_unfused",
-                                         "composite_backward_unfused"))):
+            ("serving", serve, fused[:1]),
+            ("training", train, fused),
+            ("3-view serving", serve3, unfused[:1]),
+            ("3-view training", train3, unfused),
+            ("cube serving", cserve.get(N_CTX), fused[:1]),
+            ("cube training", ctrain.get(N_CTX), fused),
+            ("3-view cube serving", cserve.get(N_CTX3), unfused[:1]),
+            ("3-view cube training", ctrain.get(N_CTX3), unfused),
+            ("cube training, TrainConfig() with remat_faces", cremat, fused)):
         if res is None:
             failures.append(f"{label} run missing")
         elif min(res["launches"].get(k, 0) for k in names) == 0:
@@ -1262,22 +1546,35 @@ def main():
         print(f"chip_smoke FAILED: {failures}", file=sys.stderr)
         sys.exit(1)
 
-    def row(name, source, replaces, res, err, timing):
+    def row(name, source, replaces, res, err, timing, cube_res, cube_timing):
+        """The kernel's numbers on its ERP path (launches over that path's
+        run, ms, plain_ms, bound at its inputs) and, under cube_*, on its
+        cube path; max_abs_err over every check of it."""
         return dict(name=name, route="cuda", source=f"splatter360_tpu_torch/csrc/{source}",
                     replaces=f"splatter360_tpu/ops/pallas/composite.py:{replaces}",
                     launches=res["launches"][name], max_abs_err=err, ms=timing["ms"],
                     plain_ms=timing["plain_ms"], bound_ms=timing["bound_ms"],
-                    bound_by=timing["bound_by"], library_ms=None)
+                    bound_by=timing["bound_by"], library_ms=None,
+                    cube_launches=cube_res["launches"][name], cube_ms=cube_timing["ms"],
+                    cube_plain_ms=cube_timing["plain_ms"], cube_bound_ms=cube_timing["bound_ms"],
+                    cube_bound_by=cube_timing["bound_by"])
 
     kernels = [
         row("composite_forward_fused", "composite_fwd.cu", 370, serve,
-            max(check["err"], serve["err"]), rows["serving 4 views"]),
+            max(check["err"], serve["err"], pin[N_CTX]["err"], cserve[N_CTX]["err"]),
+            rows["serving 4 views"], cserve[N_CTX], rows["cube serving 24 faces"]),
         row("composite_backward_fused", "composite_bwd.cu", 517, train,
-            max(bcheck["err"], train["err"]), rows["backward train 4 views"]),
+            max(bcheck["err"], train["err"], pin[N_CTX]["bwd"]["err"], ctrain[N_CTX]["err"],
+                cremat["err"]),
+            rows["backward train 4 views"], ctrain[N_CTX], rows["backward cube train 24 faces"]),
         row("composite_forward_unfused", "composite_fwd_unfused.cu", 289, serve3,
-            max(ucheck["err"], serve3["err"]), rows["unfused serving 4 views"]),
+            max(ucheck["err"], serve3["err"], pin[N_CTX3]["err"], cserve[N_CTX3]["err"]),
+            rows["unfused serving 4 views"], cserve[N_CTX3],
+            rows["unfused cube serving 24 faces"]),
         row("composite_backward_unfused", "composite_bwd_unfused.cu", 705, train3,
-            max(ubcheck["err"], train3["err"]), rows["unfused backward train 4 views"]),
+            max(ubcheck["err"], train3["err"], pin[N_CTX3]["bwd"]["err"], ctrain[N_CTX3]["err"]),
+            rows["unfused backward train 4 views"], ctrain[N_CTX3],
+            rows["unfused backward cube train 24 faces"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -30,6 +30,27 @@ _FACE_ROTATIONS = np.array(
 ).transpose(0, 2, 1)
 
 
+def cube_face_rotations(dtype=torch.float32, device=None) -> torch.Tensor:
+    """[6, 3, 3] rotation (face camera -> ERP camera) in F R B L U D order."""
+    return torch.as_tensor(_FACE_ROTATIONS, dtype=dtype, device=device)
+
+
+def cube_face_extrinsics(c2w_erp: torch.Tensor) -> torch.Tensor:
+    """ERP camera-to-world pose [..., 4, 4] -> per-face c2w poses [..., 6, 4, 4]."""
+    rots = cube_face_rotations(c2w_erp.dtype, c2w_erp.device)
+    face_rot = torch.einsum("...ij,fjk->...fik", c2w_erp[..., :3, :3], rots)
+    t = c2w_erp[..., None, :3, 3].expand(*face_rot.shape[:-2], 3)
+    top = torch.cat([face_rot, t[..., None]], dim=-1)
+    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=c2w_erp.dtype, device=c2w_erp.device)
+    return torch.cat([top, bottom.expand(*top.shape[:-2], 1, 4)], dim=-2)
+
+
+def cube_face_intrinsics(dtype=torch.float32, device=None) -> torch.Tensor:
+    """Normalized 90-degree-FoV pinhole intrinsics shared by all faces: [3, 3]."""
+    return torch.tensor([[0.5, 0.0, 0.5], [0.0, 0.5, 0.5], [0.0, 0.0, 1.0]],
+                        dtype=dtype, device=device)
+
+
 def _face_dirs(face_w: int) -> np.ndarray:
     """Unit ray directions (ERP frame) of every face pixel, [6, fw, fw, 3]."""
     u = (np.arange(face_w, dtype=np.float64) + 0.5) / face_w - 0.5
@@ -103,3 +124,22 @@ def cube_to_erp(faces: torch.Tensor, equ_h: int, equ_w: int) -> torch.Tensor:
     """Cubemap faces [6, fw, fw, C] -> ERP image [equ_h, equ_w, C]."""
     face_idx, coords = _device_grid("c2e", faces.shape[1], equ_h, equ_w, faces.device)
     return bilinear_sample_3d_faces(faces, face_idx, coords)
+
+
+def erp_distance_to_cube_zdepth_factor(face_w: int, device=None) -> torch.Tensor:
+    """[6, face_w, face_w] multiplicative factor: ray distance -> face z-depth."""
+    _, cos_factor = erp_to_cube_grid(4 * face_w, 2 * face_w, face_w)
+    return torch.as_tensor(cos_factor, device=device)
+
+
+def zdepth_to_distance(zdepth: torch.Tensor, fx, fy, cx, cy) -> torch.Tensor:
+    """Pinhole z-depth map [..., h, w] -> euclidean ray-distance map:
+    z * |((u - cx) / fx, (v - cy) / fy, 1)| with u, v the normalized pixel
+    centres ((col + 0.5) / w along the width, (row + 0.5) / h along the
+    height) and normalized intrinsics (the cube rig: 0.5, 0.5, 0.5, 0.5)."""
+    h, w = zdepth.shape[-2:]
+    u = (torch.arange(w, dtype=zdepth.dtype, device=zdepth.device) + 0.5) / w
+    v = (torch.arange(h, dtype=zdepth.dtype, device=zdepth.device) + 0.5) / h
+    xn = (u[None, :] - cx) / fx
+    yn = (v[:, None] - cy) / fy
+    return zdepth * torch.sqrt(1.0 + xn * xn + yn * yn)

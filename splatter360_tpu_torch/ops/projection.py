@@ -1,8 +1,9 @@
-"""3D Gaussian -> 2D screen-space projection into an equirectangular image.
+"""3D Gaussian -> 2D screen-space projection for equirect, pinhole and
+orthographic cameras.
 
-Counterpart of the ERP half of splatter360_tpu/ops/projection.py
-(project_erp, _finalize, sh_colors). The arithmetic keeps the reference's
-operation order so that binning decisions agree with it.
+Counterpart of splatter360_tpu/ops/projection.py (project_erp,
+project_pinhole, project_ortho, _finalize, sh_colors). The arithmetic keeps
+the reference's operation order so that binning decisions agree with it.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ from ..geometry.transforms import inverse_se3
 class Projected(NamedTuple):
     mean2d: torch.Tensor  # [N, 2] pixel coords
     conic: torch.Tensor   # [N, 3] inverse 2D covariance (a, b, c)
-    depth: torch.Tensor   # [N] radial distance (the sort key)
+    depth: torch.Tensor   # [N] sort key: radial distance (erp), camera z (pinhole, ortho)
     radius: torch.Tensor  # [N, 2] per-axis pixel extent
     valid: torch.Tensor   # [N] bool
     gate_s: Optional[torch.Tensor] = None  # [N] elliptical-cull level
@@ -35,7 +36,7 @@ def _to_cam(rot, t, means):
 
 def _cov2d_scalar(w2c_rot, du, dv, covs):
     """2D covariance (a, b, c) = T Sigma T^T, T = J R, from the Jacobian rows
-    du, dv ([N] triples) and world covariances ([N, 6] sym6)."""
+    du, dv ([N] triples) and world covariances ([N, 6] sym6 or [N, 3, 3])."""
     rows = []
     for d0, d1, d2 in (du, dv):
         rows.append(tuple(
@@ -43,7 +44,11 @@ def _cov2d_scalar(w2c_rot, du, dv, covs):
             for k in range(3)
         ))
     (t00, t01, t02), (t10, t11, t12) = rows
-    s00, s01, s02, s11, s12, s22 = covs.unbind(-1)
+    if covs.dim() == 2 and covs.shape[-1] == 6:
+        s00, s01, s02, s11, s12, s22 = covs.unbind(-1)
+    else:
+        cf = covs.reshape(-1, 9)
+        s00, s01, s02, s11, s12, s22 = (cf[:, i] for i in (0, 1, 2, 4, 5, 8))
     p0 = s00 * t00 + s01 * t01 + s02 * t02
     p1 = s01 * t00 + s11 * t01 + s12 * t02
     p2 = s02 * t00 + s12 * t01 + s22 * t02
@@ -137,6 +142,82 @@ def project_erp(
     max_ry = float(h // 2)
     return _finalize(u, v, a, b, c, r, valid, eps2d, max_radius=(max_rx, max_ry),
                      opacities=opacities)
+
+
+def project_pinhole(
+    means: torch.Tensor,
+    covs: torch.Tensor,
+    c2w: torch.Tensor,
+    intrinsics: torch.Tensor,
+    image_shape: tuple[int, int],
+    near: float | torch.Tensor,
+    eps2d: float = 0.3,
+    opacities: torch.Tensor | None = None,
+) -> Projected:
+    """Project world-space Gaussians through a pinhole camera with normalized
+    intrinsics [3, 3] (EWA local-affine Jacobian, as 3DGS): valid past
+    z > 0.2 near, x/z and y/z clamped to 1.3 tan(fov/2) inside the Jacobian
+    only, radii capped at max(h, w) on both axes."""
+    h, w = image_shape
+    w2c = inverse_se3(c2w)
+    rot = w2c[:3, :3]
+    x, y, z = _to_cam(rot, w2c[:3, 3], means)
+
+    fx = intrinsics[0, 0] * w
+    fy = intrinsics[1, 1] * h
+    cx = intrinsics[0, 2] * w
+    cy = intrinsics[1, 2] * h
+
+    valid = z > 0.2 * torch.as_tensor(near, dtype=means.dtype, device=means.device)
+    z_safe = torch.where(valid, z, torch.ones_like(z))
+
+    tan_x = 0.5 * w / fx
+    tan_y = 0.5 * h / fy
+    tx = torch.clamp(x / z_safe, -1.3 * tan_x, 1.3 * tan_x)
+    ty = torch.clamp(y / z_safe, -1.3 * tan_y, 1.3 * tan_y)
+
+    u = fx * x / z_safe + cx - 0.5
+    v = fy * y / z_safe + cy - 0.5
+
+    zero = torch.zeros_like(z_safe)
+    du = (fx / z_safe, zero, -fx * tx / z_safe)
+    dv = (zero, fy / z_safe, -fy * ty / z_safe)
+    a, b, c = _cov2d_scalar(rot, du, dv, covs)
+    mr = float(max(h, w))
+    return _finalize(u, v, a, b, c, z, valid, eps2d, max_radius=(mr, mr), opacities=opacities)
+
+
+def project_ortho(
+    means: torch.Tensor,
+    covs: torch.Tensor,
+    c2w: torch.Tensor,
+    extent: float | torch.Tensor,
+    image_shape: tuple[int, int],
+    near: float | torch.Tensor = 0.0,
+    far: float | torch.Tensor = float("inf"),
+    eps2d: float = 0.3,
+) -> Projected:
+    """Orthographic projection (the paper figures' camera): looking down +z,
+    the world square of side `extent` centred on the axis fills the image;
+    the Jacobian is constant, so the 2D covariance is exact."""
+    h, w = image_shape
+    w2c = inverse_se3(c2w)
+    rot = w2c[:3, :3]
+    x, y, z = _to_cam(rot, w2c[:3, 3], means)
+
+    extent = torch.as_tensor(extent, dtype=means.dtype, device=means.device)
+    fx = w / extent
+    fy = h / extent
+    u = fx * x + 0.5 * w - 0.5
+    v = fy * y + 0.5 * h - 0.5
+    valid = (z > near) & (z < far)
+
+    zero = torch.zeros_like(x)
+    du = (fx * torch.ones_like(x), zero, zero)
+    dv = (zero, fy * torch.ones_like(x), zero)
+    a, b, c = _cov2d_scalar(rot, du, dv, covs)
+    mr = float(max(h, w))
+    return _finalize(u, v, a, b, c, z, valid, eps2d, max_radius=(mr, mr))
 
 
 def sh_colors(sh: torch.Tensor, means: torch.Tensor, campos: torch.Tensor,

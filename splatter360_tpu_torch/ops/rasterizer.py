@@ -1,8 +1,8 @@
-"""Tiled Gaussian rasterizer, direct-ERP forward path.
+"""Tiled Gaussian rasterizer for ERP and pinhole views.
 
-Counterpart of splatter360_tpu/ops/rasterizer.py `render_tiled` with
-camera_kind="erp" and the fused compositor: project -> SH colours -> tile
-binning -> one compositor launch for all views.
+Counterpart of splatter360_tpu/ops/rasterizer.py `render_tiled` with the
+Pallas compositor: project -> SH colours -> tile binning -> one compositor
+launch for all views.
 """
 
 from __future__ import annotations
@@ -13,7 +13,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from .cuda.composite import build_attrs, composite_tiles
-from .projection import project_erp, sh_colors
+from .projection import project_erp, project_pinhole, sh_colors
 from .tiling import assign_tiles
 
 DEPTH_MODES = ("depth", "log", "disparity", "relative_disparity")
@@ -41,7 +41,45 @@ def transform_depth(depth, mode, near, far):
     raise ValueError(f"unknown depth_mode {mode!r}; expected {DEPTH_MODES}")
 
 
-def render_erp_batch(
+def project_views(means, covariances, opacities, c2w, image_shape, near,
+                  camera_kind="erp", intrinsics=None):
+    """The N Gaussians projected into each of the V views c2w [V, 4, 4]
+    (near [V]): a list of Projected."""
+    if camera_kind == "erp":
+        return [project_erp(means, covariances, c2w[i], image_shape, near[i], opacities=opacities)
+                for i in range(c2w.shape[0])]
+    return [project_pinhole(means, covariances, c2w[i], intrinsics, image_shape, near[i],
+                            opacities=opacities) for i in range(c2w.shape[0])]
+
+
+def view_colors(harmonics, means, c2w, sh_degree, views_per_position=1):
+    """Each view's RGB [N, 3]. Each run of `views_per_position` consecutive
+    views shares one camera position (the 6 faces of a cube rig), so their
+    SH colours, a function of the position alone, are computed once."""
+    v = c2w.shape[0]
+    if harmonics.shape[-1] == 1:
+        return [harmonics[..., 0]] * v
+    runs = [sh_colors(harmonics, means, c2w[i, :3, 3], sh_degree)
+            for i in range(0, v, views_per_position)]
+    return [runs[i // views_per_position] for i in range(v)]
+
+
+def bin_views(projs, image_shape, wrap_x, instance_cap=None):
+    """assign_tiles of each view; binning yields indices only, so nothing
+    of it is differentiated."""
+    with torch.no_grad():
+        return [assign_tiles(p, image_shape, wrap_x, instance_cap=instance_cap) for p in projs]
+
+
+def view_attrs(projs, colors, opacities, near, far, depth_mode="depth"):
+    """The compositor's attribute table [V, N, 16] of the views."""
+    return torch.stack([
+        build_attrs(p.mean2d, p.conic, c, opacities,
+                    transform_depth(p.depth, depth_mode, near[i], far[i]), p.radius)
+        for i, (p, c) in enumerate(zip(projs, colors))])
+
+
+def batch_inputs(
     means: torch.Tensor,        # [N, 3]
     covariances: torch.Tensor,  # [N, 6] sym6
     harmonics: torch.Tensor,    # [N, 3, d_sh]
@@ -50,50 +88,67 @@ def render_erp_batch(
     image_shape: tuple[int, int],
     near,                       # [V] or scalar
     far,                        # [V] or scalar
-    background: Optional[torch.Tensor] = None,
     sh_degree: Optional[int] = None,
     depth_mode: str = "depth",
-) -> RenderOutput:
-    """Render V ERP views of one Gaussian set with a single compositor
-    launch. Returns batched outputs (color [V, H, W, 3], depth/alpha
-    [V, H, W], dropped [V])."""
+    camera_kind: str = "erp",
+    intrinsics: Optional[torch.Tensor] = None,  # [3, 3] normalized (pinhole)
+    instance_cap: Optional[int] = None,
+    views_per_position: int = 1,
+):
+    """The compositor's inputs for V views of one Gaussian set: (attrs
+    [V, N, 16], the views' tile assignments, wrap_x). ERP views composite
+    with the horizontal wrap, pinhole views without it."""
     v = c2w.shape[0]
-    if background is None:
-        background = torch.zeros(3, dtype=means.dtype, device=means.device)
+    if camera_kind not in ("erp", "pinhole"):
+        raise ValueError(f"camera_kind={camera_kind!r}: expected 'erp' or 'pinhole'")
+    if camera_kind == "pinhole" and intrinsics is None:
+        raise ValueError("a pinhole render needs intrinsics")
+    if v % views_per_position:
+        raise ValueError(f"{v} views are not runs of {views_per_position}")
+    wrap_x = camera_kind == "erp"
     if sh_degree is None:
         sh_degree = int(math.isqrt(harmonics.shape[-1]) - 1)
     near = torch.as_tensor(near, dtype=means.dtype, device=means.device).expand(v)
     far = torch.as_tensor(far, dtype=means.dtype, device=means.device).expand(v)
-    attrs, assignments = [], []
-    for i in range(v):
-        proj = project_erp(means, covariances, c2w[i], image_shape, near[i],
-                           opacities=opacities)
-        if harmonics.shape[-1] == 1:
-            colors = harmonics[..., 0]
-        else:
-            colors = sh_colors(harmonics, means, c2w[i, :3, 3], sh_degree)
-        with torch.no_grad():  # binning yields indices only: nothing to differentiate
-            assignments.append(assign_tiles(proj, image_shape, wrap_x=True))
-        depth_vals = transform_depth(proj.depth, depth_mode, near[i], far[i])
-        attrs.append(build_attrs(proj.mean2d, proj.conic, colors, opacities,
-                                 depth_vals, proj.radius))
-    rgb, alpha, dacc = composite_tiles(assignments, torch.stack(attrs),
-                                       image_shape, background, wrap_x=True)
+    projs = project_views(means, covariances, opacities, c2w, image_shape, near, camera_kind,
+                          intrinsics)
+    colors = view_colors(harmonics, means, c2w, sh_degree, views_per_position)
+    assignments = bin_views(projs, image_shape, wrap_x, instance_cap)
+    attrs = view_attrs(projs, colors, opacities, near, far, depth_mode)
+    return attrs, assignments, wrap_x
+
+
+def render_batch(
+    means, covariances, harmonics, opacities, c2w, image_shape, near, far,
+    background: Optional[torch.Tensor] = None, sh_degree: Optional[int] = None,
+    depth_mode: str = "depth", camera_kind: str = "erp", intrinsics=None,
+    instance_cap: Optional[int] = None, views_per_position: int = 1,
+) -> RenderOutput:
+    """Render V views of one Gaussian set (batch_inputs' arguments) with a
+    single compositor launch. Returns batched outputs (color [V, H, W, 3],
+    depth/alpha [V, H, W], dropped [V])."""
+    attrs, assignments, wrap_x = batch_inputs(
+        means, covariances, harmonics, opacities, c2w, image_shape, near, far, sh_degree,
+        depth_mode, camera_kind, intrinsics, instance_cap, views_per_position)
+    if background is None:
+        background = torch.zeros(3, dtype=means.dtype, device=means.device)
+    rgb, alpha, dacc = composite_tiles(assignments, attrs, image_shape, background,
+                                       wrap_x=wrap_x)
     return RenderOutput(color=rgb, depth=dacc, alpha=alpha,
                         dropped=torch.stack([a.dropped for a in assignments]))
 
 
 def render_tiled(
     means, covariances, harmonics, opacities, c2w, image_shape,
-    camera_kind: str = "erp", near=0.1, far=100.0, background=None,
+    camera_kind: str = "erp", intrinsics=None, near=0.1, far=100.0, background=None,
     sh_degree: Optional[int] = None, render_depth: bool = False,
-    depth_mode: str = "depth",
+    depth_mode: str = "depth", instance_cap: Optional[int] = None,
 ) -> RenderOutput:
     """Render one view ([H, W, 3] colour); the counterpart of the JAX
-    render_tiled for camera_kind="erp" on the fused compositor."""
-    if camera_kind != "erp":
-        raise NotImplementedError(f"camera_kind={camera_kind!r}: only 'erp' is ported")
-    out = render_erp_batch(means, covariances, harmonics, opacities, c2w[None],
-                           image_shape, near, far, background, sh_degree, depth_mode)
+    render_tiled with the Pallas compositor (camera_kind "erp" or
+    "pinhole")."""
+    out = render_batch(means, covariances, harmonics, opacities, c2w[None], image_shape,
+                       near, far, background, sh_degree, depth_mode, camera_kind, intrinsics,
+                       instance_cap)
     return RenderOutput(color=out.color[0], depth=out.depth[0] if render_depth else None,
                         alpha=out.alpha[0], dropped=out.dropped[0])

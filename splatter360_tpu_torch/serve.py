@@ -1,11 +1,14 @@
-"""Serving entry points: posed ERP panoramas -> Gaussians -> novel ERP views.
+"""Serving entry points: posed ERP panoramas -> Gaussians -> novel ERP views
+or their cube faces.
 
 Counterpart of the JAX Evaluator's encode/decode (splatter360_tpu/train/
-evaluator.py) and `_context_cubes` (train/state.py):
+evaluator.py: `_encode`, `_decode_erp`, `_decode_cubes`) and `_context_cubes`
+(train/state.py):
 
     model = build_model(HM3D, seed=0)                       # or state_dict=...
     gaussians, depth = encode(model, images, c2w, near, far)
     out = render_erp_views(gaussians, target_c2w, near_t, far_t, (512, 1024))
+    faces = render_cube_views(gaussians, target_c2w, near_t, far_t, 256)
 
 Everything runs on the card unless the caller passes device="cpu"; with no
 card present the entry points raise. The slice computes in float32 with TF32
@@ -96,3 +99,20 @@ def render_erp_views(gaussians: Gaussians, extrinsics, near, far,
         (background,) = _on(dev, background)
     return decoder.render_erp_views(gaussians, extrinsics, near, far, image_shape,
                                     background=background, render_depth=render_depth)
+
+
+@torch.no_grad()
+def render_cube_views(gaussians: Gaussians, extrinsics, near, far, face_w: int,
+                      render_depth: bool = False, background=None,
+                      device: str | torch.device = "cuda") -> decoder.DecoderOutput:
+    """Render the 6 cube faces (F R B L U D, face_w x face_w pinhole views)
+    of target views [B, V]: colour [B, V, 6, fw, fw, 3], depth (camera z)
+    and alpha [B, V, 6, fw, fw], dropped [B, V, 6]; all V*6 faces of an
+    item go through one compositor launch."""
+    dev = resolve_device(device)
+    gaussians = Gaussians(*_on(dev, *gaussians))
+    extrinsics, near, far = _on(dev, extrinsics, near, far)
+    if background is not None:
+        (background,) = _on(dev, background)
+    return decoder.render_cube_views(gaussians, extrinsics, near, far, (face_w, face_w),
+                                     background=background, render_depth=render_depth)

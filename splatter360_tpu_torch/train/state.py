@@ -1,20 +1,24 @@
-"""Train state and the train step with ERP supervision.
+"""Train state and the train step with cube-face or ERP supervision.
 
 Counterpart of splatter360_tpu/train/state.py (`OptimizerConfig`,
-`TrainConfig`, `make_optimizer`, `create_train_state`, the ERP branch of
-`compute_losses`, `make_train_step`):
+`TrainConfig`, `make_optimizer`, `create_train_state`, `compute_losses`,
+`make_train_step`):
 
     state = create_train_state(HM3D, TrainConfig(), seed=0)   # device="cuda"
     metrics = train_step(state, batch)                        # one update
 
-One step: encode the context panoramas -> Gaussians -> render the target
-panoramas (one compositor launch for all views, fused CUDA backward) ->
-sin(phi)-weighted ERP MSE + LPIPS + sin(phi)-weighted depth L1 on the
-encoder's depth map -> global-norm clip (optax's formula) -> Adam with
-optax's cosine one-cycle schedule. A batch is the JAX package's dict:
-{"context": {image_sphere [B, V, H, W, 3], extrinsics_sphere [B, V, 4, 4],
-depth_sphere [B, V, H, W], near, far [B, V]}, "target": {image_sphere,
-extrinsics_sphere, near, far}}. Computes in float32 with TF32 off.
+One step: encode the context panoramas -> Gaussians -> render the targets
+(one compositor launch for all of an item's views or faces, CUDA backward)
+-> the image loss + LPIPS + sin(phi)-weighted depth L1 on the encoder's
+depth map -> global-norm clip (optax's formula) -> Adam with optax's cosine
+one-cycle schedule. The image loss follows `supervision`: "cubes" (the JAX
+default, the reference's protocol) renders the 6 pinhole faces of every
+target view and takes the MSE against the targets resampled to faces;
+"erp" renders the target panoramas and takes the sin(phi)-weighted ERP
+MSE. A batch is the JAX package's dict: {"context": {image_sphere [B, V, H,
+W, 3], extrinsics_sphere [B, V, 4, 4], depth_sphere [B, V, H, W], near, far
+[B, V]}, "target": {image_sphere, extrinsics_sphere, near, far}}. Computes
+in float32 with TF32 off.
 """
 
 from __future__ import annotations
@@ -30,7 +34,7 @@ from ..device import resolve_device, set_f32_policy
 from ..models import decoder
 from ..models.encoder import EncoderConfig, EncoderCostVolume360
 from ..serve import build_model, context_cubes
-from .losses import LossConfig, sin_weighted_depth_l1, sin_weighted_mse
+from .losses import LossConfig, mse_loss, sin_weighted_depth_l1, sin_weighted_mse
 from .lpips import LPIPS, init_lpips
 from .metrics import compute_psnr
 
@@ -47,14 +51,18 @@ class OptimizerConfig:
 class TrainConfig:
     optimizer: OptimizerConfig = dataclasses.field(default_factory=OptimizerConfig)
     loss: LossConfig = dataclasses.field(default_factory=LossConfig)
-    supervision: str = "erp"  # "cubes" is not ported
+    supervision: str = "cubes"  # "cubes" | "erp"
+    cube_face_size: Optional[int] = None  # default: H // 2
+    # render each target view's 6 faces again in the backward instead of
+    # keeping their activations (torch.utils.checkpoint); hm3d.yaml sets False
+    remat_faces: bool = True
     shard_faces: bool = False
     shard_render: bool = False
 
 
 def _check_ported(train_cfg: TrainConfig) -> None:
-    if train_cfg.supervision != "erp":
-        raise NotImplementedError(f"supervision={train_cfg.supervision!r}: only 'erp' is ported")
+    if train_cfg.supervision not in ("cubes", "erp"):
+        raise ValueError(f"supervision={train_cfg.supervision!r}: expected 'cubes' or 'erp'")
     for flag in ("shard_faces", "shard_render"):
         if getattr(train_cfg, flag):
             raise NotImplementedError(f"{flag}=True is not ported")
@@ -142,29 +150,41 @@ def _on_device(batch: Mapping, dev: torch.device) -> dict:
 
 def compute_losses(state: TrainState, batch: Mapping,
                    on_stage: Optional[Callable[[str], None]] = None):
-    """The ERP branch of the JAX compute_losses: (total loss, metrics).
-    `on_stage(name)`, if given, is called after "encoder", "render" and
-    "losses" (chip_smoke.py records CUDA events there)."""
+    """The JAX compute_losses: (total loss, metrics). `on_stage(name)`, if
+    given, is called after "encoder", "render" and "losses" (chip_smoke.py
+    records CUDA events there)."""
     mark = on_stage or (lambda name: None)
     dev = next(state.model.parameters()).device
     batch = _on_device(batch, dev)
     ctx, tgt = batch["context"], batch["target"]
+    tcfg = state.train_cfg
     h, w = ctx["image_sphere"].shape[2:4]
+    face = tcfg.cube_face_size or h // 2
     gaussians, pred_depth = state.model(
-        ctx["image_sphere"], context_cubes(ctx["image_sphere"], h // 2),
+        ctx["image_sphere"], context_cubes(ctx["image_sphere"], face),
         ctx["extrinsics_sphere"], ctx["near"], ctx["far"], state.step)
     mark("encoder")
-    rendered = decoder.render_erp_views(gaussians, tgt["extrinsics_sphere"], tgt["near"],
-                                        tgt["far"], (h, w))
+    if tcfg.supervision == "cubes":
+        rendered = decoder.render_cube_views(gaussians, tgt["extrinsics_sphere"], tgt["near"],
+                                             tgt["far"], (face, face),
+                                             remat_faces=tcfg.remat_faces)
+        gt = context_cubes(tgt["image_sphere"], face)
+        loss_mse = mse_loss(rendered.color, gt)
+        img_shape = (face, face)
+    else:
+        rendered = decoder.render_erp_views(gaussians, tgt["extrinsics_sphere"], tgt["near"],
+                                            tgt["far"], (h, w))
+        gt = tgt["image_sphere"]
+        loss_mse = sin_weighted_mse(rendered.color, gt)
+        img_shape = (h, w)
     mark("render")
 
-    lcfg = state.train_cfg.loss
-    pred, gt = rendered.color, tgt["image_sphere"]
-    loss_mse = sin_weighted_mse(pred, gt)
-    flat_pred, flat_gt = pred.reshape(-1, h, w, 3), gt.reshape(-1, h, w, 3)
+    lcfg = tcfg.loss
+    flat_pred = rendered.color.reshape(-1, *img_shape, 3)
+    flat_gt = gt.reshape(-1, *img_shape, 3)
     metrics = {"psnr": torch.mean(compute_psnr(flat_gt, flat_pred.detach())),
                "loss_mse": loss_mse,
-               # splats lost to emission-cap overflow over all rendered views
+               # splats lost to emission-cap overflow over all rendered views or faces
                "dropped": torch.sum(rendered.dropped).to(torch.float32)}
     total = lcfg.mse_weight * loss_mse
     if lcfg.lpips_weight > 0 and state.lpips is not None:

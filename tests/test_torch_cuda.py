@@ -17,6 +17,9 @@ The unfused kernels (the path past the fused table budget) are held the
 same way, through the pack, map and scatter around them. All four kernels
 cut a heavy tile's blocks into spans of S blocks; each is held at spans of
 1 and 3 blocks and the default against the plain version at the same span.
+The pinhole cases hold all four at wrap_x=False (spans 1 and the default):
+the 6 cube faces of a scene at 96x96 (one tile column, 32 columns off the
+image) and a 64x256 view with splats across both side edges.
 """
 
 import math
@@ -27,7 +30,8 @@ import torch
 
 from splatter360_tpu_torch.geometry.transforms import build_covariance_sym6
 from splatter360_tpu_torch.ops.cuda import composite as tc
-from splatter360_tpu_torch.ops.projection import project_erp, sh_colors
+from splatter360_tpu_torch.geometry.cubemap import cube_face_extrinsics, cube_face_intrinsics
+from splatter360_tpu_torch.ops.projection import project_erp, project_pinhole, sh_colors
 from splatter360_tpu_torch.ops.tiling import assign_tiles
 
 ATOL_RGB, ATOL_DEPTH = 1e-4, 5e-4
@@ -311,3 +315,132 @@ def test_kernel_refuses_bad_inputs():
     for span in (0, -1, 2.0, True):
         with pytest.raises(ValueError, match="span"):
             tc.composite_backward(*bwd, 1, 2, 256.0, True, span=span)
+
+
+def pinhole_inputs(kind, device, bin_wrapped=False):
+    """The compositor's inputs at wrap_x=False and the views' tile_ids:
+    "faces", the 6 cube faces (96x96) of random_scene's Gaussians from the
+    origin, each face's instance list capped at max(N, 4096) as the cube
+    renderer caps it; "edge", one 64x256 view (fx = fy = 128 px) of
+    Gaussians of which a quarter sit on the left and right image edges,
+    binned with the wrap when `bin_wrapped` (each edge splat also lands in
+    the far edge's tile)."""
+    rng = np.random.default_rng(9)
+    if kind == "faces":
+        shape, means, scales, quats, sh, op = random_scene(20000, seed=5)
+        c2ws = cube_face_extrinsics(torch.eye(4, device=device))
+        intr = cube_face_intrinsics(device=device)
+        shape = (96, 96)
+    else:
+        shape, n = (64, 256), 1000
+        z = rng.uniform(1.0, 6.0, n)
+        u = np.concatenate([rng.uniform(-6, 6, n // 8), rng.uniform(250, 262, n // 8),
+                            rng.uniform(-20, 276, n - n // 4)])
+        v = rng.uniform(-4, 68, n)
+        means = np.stack([(u - 127.5) / 128 * z, (v - 31.5) / 128 * z, z], -1)
+        scales = rng.uniform(0.01, 0.04, (n, 3)) * z[:, None]
+        quats = rng.normal(size=(n, 4))
+        quats /= np.linalg.norm(quats, axis=-1, keepdims=True)
+        sh = 0.3 * rng.normal(size=(n, 3, 9))
+        sh[..., 0] += 0.5
+        op = rng.uniform(0.3, 0.95, n)
+        c2ws = torch.eye(4, device=device)[None]
+        intr = torch.tensor([[0.5, 0, 0.5], [0, 2.0, 0.5], [0, 0, 1]], device=device)
+    means, scales, quats, sh, op = (torch.as_tensor(np.asarray(x, np.float32), device=device)
+                                    for x in (means, scales, quats, sh, op))
+    covs = build_covariance_sym6(scales, quats)
+    colors = sh_colors(sh, means, c2ws[0, :3, 3], 2)
+    attrs, asgs = [], []
+    for c2w in c2ws:
+        proj = project_pinhole(means, covs, c2w, intr, shape, 0.1, opacities=op)
+        cap = max(means.shape[0], 4096) if kind == "faces" else None
+        asgs.append(assign_tiles(proj, shape, bin_wrapped, instance_cap=cap))
+        attrs.append(tc.build_attrs(proj.mean2d, proj.conic, colors, op, proj.depth,
+                                    proj.radius))
+    args = (torch.stack(attrs), *(torch.stack([getattr(a, k) for a in asgs])
+                                  for k in ("gaussian_idx", "tile_starts", "tile_counts")),
+            asgs[0].num_tiles_y, asgs[0].num_tiles_x, float(shape[1]), False)
+    return args, torch.stack([a.tile_ids for a in asgs])
+
+
+PINHOLE_FWD_SPANS = [1, tc.FWD_SPAN]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("span", PINHOLE_FWD_SPANS)
+@pytest.mark.parametrize("kind", ["faces", "edge"])
+def test_pinhole_forward_kernels_match_plain_on_card(cuda_device, cut_every_tile, kind, span):
+    """Both forward kernels at wrap_x=False against their plain versions,
+    all 8 planes bit for bit, and the unfused kernel bit-equal to the fused
+    one. On the edge view binned with the wrap, the kernel at wrap_x=True
+    carries the splats across the edges and at wrap_x=False it does not:
+    the two differ in the edge columns, so the flag reaches the kernel."""
+    args, tile_ids = pinhole_inputs(kind, cuda_device)
+    attrs, gidx, starts, counts, nty, ntx, w_img, _ = args
+    inst = tc.pack_instances(attrs, gidx, tile_ids, nty * ntx)
+    uargs = (inst, starts, counts, nty, ntx, w_img, False)
+    before = dict(tc.launch_counts)
+    got = tc.composite_forward(*args, span=span)
+    got_u = tc.composite_forward_unfused(*uargs, span=span)
+    assert tc.launch_counts[tc.KERNEL_NAME] == before[tc.KERNEL_NAME] + 1
+    assert tc.launch_counts[tc.UNFUSED_KERNEL_NAME] == before[tc.UNFUSED_KERNEL_NAME] + 1
+    assert torch.equal(got, tc.composite_forward_plain(*args, span=span))
+    assert torch.equal(got_u, tc.composite_forward_unfused_plain(*uargs, span=span))
+    assert torch.equal(got, got_u)
+    assert bool((got[:, :, 4] < 1.0).any())  # something was composited
+    if kind == "edge":
+        wrapped, _ = pinhole_inputs(kind, cuda_device, bin_wrapped=True)
+        bg = torch.zeros(3, device=cuda_device)
+        alpha = {flag: tc.compose_planes(tc.composite_forward(*wrapped[:-1], flag, span=span),
+                                         (64, 256), nty, ntx, bg)[1][0]
+                 for flag in (False, True)}
+        diff = (alpha[True] - alpha[False]).abs().amax(dim=0)
+        assert float(diff[:12].max()) > 0.1 and float(diff[-12:].max()) > 0.1
+        # the middle gets only zero alphas more: its T moves only where the
+        # tile's exit does, below 1e-4
+        assert float(diff[64:192].max()) < 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("span", [1, tc.BWD_SPAN])
+@pytest.mark.parametrize("kind", ["faces", "edge"])
+def test_pinhole_backward_kernels_match_plain_on_card(cuda_device, kind, span):
+    """Both backward kernels at wrap_x=False against their plain versions on
+    the kernel's forward planes and a seeded cotangent on planes 0-4 (zero
+    on the faces' off-image pixels, as compose_planes' crop gives them), per
+    row of g_attrs at the bars above."""
+    args, tile_ids = pinhole_inputs(kind, cuda_device)
+    attrs, gidx, starts, counts, nty, ntx, w_img, wrap_x = args
+    planes = tc.composite_forward(*args)
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    g_planes = torch.zeros_like(planes)
+    g_planes[:, :, :5] = torch.randn(planes[:, :, :5].shape, generator=gen, device=cuda_device)
+    side = 96 if kind == "faces" else 256
+    col = torch.arange(2048, device=cuda_device) % 128 + 128 * (
+        torch.arange(nty * ntx, device=cuda_device) % ntx)[:, None]
+    g_planes = g_planes * (col < side)[None, :, None, :]
+    lt, nproc = planes[:, :, 5].contiguous(), planes[:, :, 6, 0].to(torch.int32)
+    bwd = (g_planes, lt, nproc, nty, ntx, w_img, wrap_x)
+    inst = tc.pack_instances(attrs, gidx, tile_ids, nty * ntx)
+    before = dict(tc.launch_counts)
+    got = tc.composite_backward(attrs, gidx, starts, counts, *bwd, span=span)
+    ref = tc.composite_backward_plain(attrs, gidx, starts, counts, *bwd, span=span)
+    dout = tc.composite_backward_unfused(inst, starts, counts, *bwd, span=span)
+    ref_dout = tc.composite_backward_unfused_plain(inst, starts, counts, *bwd, span=span)
+    assert tc.launch_counts[tc.BWD_KERNEL_NAME] == before[tc.BWD_KERNEL_NAME] + 1
+    assert tc.launch_counts[tc.UNFUSED_BWD_KERNEL_NAME] == before[tc.UNFUSED_BWD_KERNEL_NAME] + 1
+    n = attrs.shape[1]
+    got_u = tc.scatter_out_blocks(dout, gidx, starts, counts, nproc, n)
+    ref_u = tc.scatter_out_blocks(ref_dout, gidx, starts, counts, nproc, n)
+    torch.cuda.synchronize()
+    for kernel, plain in ((got, ref), (got_u, ref_u)):
+        kernel, plain = kernel.cpu().numpy(), plain.cpu().numpy()
+        assert np.isfinite(kernel).all()
+        np.testing.assert_array_equal(kernel[..., 10:], 0.0)
+        for row in range(tc.N_GRAD):
+            k_row, p_row = kernel[..., row].ravel(), plain[..., row].ravel()
+            scale = np.abs(p_row).max() + 1e-12
+            np.testing.assert_allclose(k_row / scale, p_row / scale, atol=GRAD_TOL,
+                                       err_msg=f"row {row}")
+            l2 = np.linalg.norm(k_row - p_row) / (np.linalg.norm(p_row) + 1e-30)
+            assert l2 <= L2_TOL, (row, l2)

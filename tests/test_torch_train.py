@@ -385,7 +385,7 @@ def port_state(ref, state_dict=None):
 
     cfg = EncoderConfig(gaussian_adapter=GaussianAdapterConfig(sh_degree=1), **ENC_KW)
     tcfg = TrainConfig(optimizer=OptimizerConfig(max_steps=100),
-                       loss=LossConfig(lpips_weight=0.05, depth_weight=0.1))
+                       loss=LossConfig(lpips_weight=0.05, depth_weight=0.1), supervision="erp")
     return create_train_state(cfg, tcfg, device="cpu",
                               state_dict=state_dict or torch_state_from_flax(ref["params"]),
                               lpips_state=lpips_state_from_flax(ref["lpips"]))

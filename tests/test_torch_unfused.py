@@ -217,7 +217,7 @@ def test_unfused_backward_smooth_vs_jax(jax_unfused, unfused, monkeypatch):
 
 def compositor_inputs(kind, views):
     """attrs, gidx, tile_ids, starts, counts (V views) of a scene, built as
-    render_erp_batch builds them."""
+    render_batch builds them."""
     from splatter360_tpu_torch.ops.projection import project_erp, sh_colors
     from splatter360_tpu_torch.ops.tiling import assign_tiles
 
@@ -375,7 +375,7 @@ def test_three_view_train_step(three_view_budgets, monkeypatch):
                            near=np.full((1, v), near, np.float32),
                            far=np.full((1, v), 10.0, np.float32))
     cfg = EncoderConfig(gaussian_adapter=GaussianAdapterConfig(sh_degree=1), **ENC_KW)
-    state = create_train_state(cfg, TrainConfig(), seed=0, device="cpu")
+    state = create_train_state(cfg, TrainConfig(supervision="erp"), seed=0, device="cpu")
     before = {k: p.detach().clone() for k, p in state.model.named_parameters()}
     calls = {}
     for name in ("composite_forward_unfused", "composite_backward_unfused"):
