@@ -45,6 +45,14 @@ Phases (any failure ends in a non-zero exit and no result line):
      context panoramas and N_STEPS - 1 with 3; the backward kernel against
      its plain version on the last step's face inputs), and a GPU against a
      CPU cube train step on a small input, fused then unfused;
+  3l. the CLI's evaluation mode (python -m splatter360_tpu_torch.main
+     configs/hm3d.yaml mode=test ...) on 3 seeded 512x1024 test scenes with a
+     saved checkpoint of the flagship model, bf16 compute from the file: 2
+     context panoramas scored on ERP, then on cube faces, then 3 context
+     panoramas; every artefact written, finite scores, the weights restored,
+     the fused forward kernel launched on the 2-view runs and the unfused one
+     on the 3-view run; bf16 against f32 encoder time on the same requests;
+     a GPU against a CPU bf16 encoder at 64x256;
   4. time each kernel and its plain version with CUDA events, the unfused
      path's pack and scatter apart, the fused kernels on the 3-view inputs,
      and the serving render stage by stage; both backward kernels at their
@@ -65,12 +73,16 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import importlib.util
 import json
 import math
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -118,6 +130,12 @@ CUBE_JUMP_TOL = {"backbone_erp.CNNEncoder_0.ResidualBlock_1.Conv_1.weight": 3.5e
 # the spans timed in phase 4 (blocks of a heavy tile's segment or walk one
 # work item takes; None: one span a tile)
 SPANS = (1, 4, 16, 64, None)
+# phase 3l: the CLI's test scenes (frames each) and the bf16 encoder's bars
+# against the CPU (tests/test_torch_bf16.py's: through the whole random
+# encoder, rounding flips of another backend grow to the policy's own size)
+CLI_SCENES, CLI_FRAMES = 3, 12
+BF16_RATIO, BF16_MEAN_RATIO = 1.5, 1.25
+CONFIG = Path(__file__).resolve().parent / "configs" / "hm3d.yaml"
 
 failures: list[str] = []
 
@@ -812,12 +830,12 @@ def serve_requests(seed, n_ctx, face=None):
     faces each (render_cube_views); each must launch exactly one forward
     kernel, of the path its N takes. Returns the launch counts over the run
     and the last request's Gaussians and target poses."""
-    from splatter360_tpu_torch.models.encoder import HM3D
+    from splatter360_tpu_torch.models.encoder import HM3D_F32
     from splatter360_tpu_torch.ops.cuda import composite as comp
     from splatter360_tpu_torch.serve import build_model, encode, render_cube_views, render_erp_views
 
     fwd_name, _ = path_kernels(n_ctx * H * W)
-    model = build_model(HM3D, seed=seed, device="cuda")
+    model = build_model(HM3D_F32, seed=seed, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(seed + 1)
     reqs = [request_data(gen, n_ctx=n_ctx) for _ in range(N_REQUESTS)]
     torch.cuda.synchronize()
@@ -1052,7 +1070,7 @@ def train_steps(seed, n_ctx, face=None, n_steps=N_STEPS, remat=False):
     faces; under remat_faces the 6 faces of one view, one checkpointed
     launch); on the ERP path the first step's Gaussians and backward inputs
     kept for phase 4."""
-    from splatter360_tpu_torch.models.encoder import HM3D
+    from splatter360_tpu_torch.models.encoder import HM3D_F32
     from splatter360_tpu_torch.ops.cuda import composite as comp
     from splatter360_tpu_torch.train.state import TrainConfig, create_train_state, train_step
 
@@ -1066,7 +1084,7 @@ def train_steps(seed, n_ctx, face=None, n_steps=N_STEPS, remat=False):
     else:
         cfg = TrainConfig(supervision="cubes", remat_faces=False)
     n_fwd, n_bwd = (2 * N_TGT, N_TGT) if remat else (1, 1)
-    state = create_train_state(HM3D, cfg, seed=seed, device="cuda")
+    state = create_train_state(HM3D_F32, cfg, seed=seed, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(seed + 3)
     batches = [train_batch(gen, n_ctx=n_ctx) for _ in range(n_steps)]
     # the first step's Gaussians before any update, where the random weights
@@ -1342,6 +1360,196 @@ def phase_small_train_cubes(seed):
         comp.FUSED_TABLE_BUDGET = budget
 
 
+def cli_scenes(root: Path, seed: int) -> str:
+    """CLI_SCENES test scenes of CLI_FRAMES 512x1024 frames: random RGB,
+    depth in [0.5, 5] m, poses 10 cm apart on a line. Returns the format
+    written (.s3z or .npz)."""
+    from splatter360_tpu_torch.data.scene_io import save_scene
+
+    rng = np.random.default_rng(seed)
+    for i in range(CLI_SCENES):
+        rgb = rng.integers(0, 256, (CLI_FRAMES, H, W, 3), dtype=np.uint8)
+        depth = (rng.uniform(0.5, 5.0, (CLI_FRAMES, H, W)) * 1000).astype(np.uint16)
+        poses = np.tile(np.eye(4, dtype=np.float32), (CLI_FRAMES, 1, 1))
+        poses[:, 0, 3] = 0.1 * np.arange(CLI_FRAMES)
+        path = save_scene(root, "test", f"scene{i}", rgb, depth, poses)
+    return path.suffix
+
+
+def cli_run(label, argv, fwd_name, saved):
+    """One `main(argv)` run: launch counts over it, its artefacts checked,
+    the restored weights held against `saved`."""
+    import splatter360_tpu_torch.train.checkpoint as ckpt
+    from splatter360_tpu_torch.main import main as cli_main
+    from splatter360_tpu_torch.ops.cuda import composite as comp
+
+    restore = ckpt.restore_weights_only
+    restored = {}
+
+    def checked_restore(directory, state, step=None):
+        state, ok = restore(directory, state, step)
+        restored["ok"] = ok and all(torch.equal(v.cpu(), saved[k])
+                                    for k, v in state.model.state_dict().items())
+        return state, ok
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for k in comp.launch_counts:
+        comp.launch_counts[k] = 0
+    ckpt.restore_weights_only = checked_restore
+    t0 = time.perf_counter()
+    try:
+        scores = cli_main(argv)
+    finally:
+        ckpt.restore_weights_only = restore
+    wall = time.perf_counter() - t0
+    launches = dict(comp.launch_counts)
+    out = Path(next(a for a in argv if a.startswith("test.output_path=")).split("=", 1)[1])
+    if not restored.get("ok"):
+        raise AssertionError(f"{label}: the checkpoint's weights were not restored as saved")
+    if launches.get(fwd_name, 0) == 0:
+        raise AssertionError(f"{label}: {fwd_name} never launched ({launches})")
+    metrics = sorted(next(iter(scores.values())))
+    for name in ["scores_all_avg.json", "mse_dict.json", "benchmark.json", "peak_memory.json",
+                 *(f"scores_{m}_all.json" for m in metrics)]:
+        if not (out / name).is_file():
+            raise AssertionError(f"{label}: {name} missing")
+    for scene, entry in scores.items():
+        if not all(math.isfinite(v) for v in entry.values()):
+            raise AssertionError(f"{label}: non-finite score in {scene}: {entry}")
+        for sub in ("color", "gt", "err", "depth"):
+            if not any((out / scene / sub).glob("*.png")):
+                raise AssertionError(f"{label}: no {scene}/{sub} images")
+        if not (out / scene / "compare.png").is_file():
+            raise AssertionError(f"{label}: no {scene}/compare.png")
+    if not {"psnr", "ssim", "mse", "lpips", "depth_abs_rel"} <= set(metrics):
+        raise AssertionError(f"{label}: scores {metrics}")
+    bench = json.loads((out / "benchmark.json").read_text())
+    mem = json.loads((out / "peak_memory.json").read_text())["device_0"]
+    avg = json.loads((out / "scores_all_avg.json").read_text())
+    print(f"{label}: {wall:.1f} s, {len(scores)} scenes; benchmark.json encoder "
+          f"{1e3 * bench['encoder']['mean_s']:.1f} ms, decoder "
+          f"{1e3 * bench['decoder']['mean_s']:.1f} ms a view (means past the first scene); "
+          f"peak {mem['peak_bytes_in_use'] / 2**30:.2f} GiB allocated, "
+          f"{mem['peak_bytes_reserved'] / 2**30:.2f} GiB reserved; launches {launches}; "
+          f"psnr {avg['psnr']:.3f} ssim {avg['ssim']:.4f} lpips {avg['lpips']:.4f} "
+          f"depth abs_rel {avg['depth_abs_rel']:.4f}", flush=True)
+    return dict(launches=launches, benchmark=bench, memory=mem, scores=avg, wall_s=wall)
+
+
+def encoder_times(seed, iters=3):
+    """Median ms of the bf16 (HM3D) and f32 (HM3D_F32) encoders on the same
+    requests, 2 and 3 context panoramas, after a warm-up encode."""
+    from splatter360_tpu_torch.models.encoder import HM3D, HM3D_F32
+    from splatter360_tpu_torch.serve import build_model, encode
+
+    out = {}
+    for n_ctx in (N_CTX, N_CTX3):
+        r = request_data(torch.Generator(device="cuda").manual_seed(seed + 5), n_ctx=n_ctx)
+        for name, cfg in (("bf16", HM3D), ("f32", HM3D_F32)):
+            model = build_model(cfg, seed=seed, device="cuda")
+            times = []
+            for _ in range(iters + 1):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                g, _ = encode(model, r["image"], r["ctx_pose"], r["near"], r["far"])
+                torch.cuda.synchronize()
+                times.append(1e3 * (time.perf_counter() - t0))
+            if g.means.dtype != torch.float32:
+                raise AssertionError(f"{name} encoder: Gaussians leave in {g.means.dtype}")
+            out[(name, n_ctx)] = float(np.median(times[1:]))
+            del model, g
+            torch.cuda.empty_cache()
+        print(f"encoder, {n_ctx} context panoramas: bf16 {out[('bf16', n_ctx)]:.1f} ms, "
+              f"f32 {out[('f32', n_ctx)]:.1f} ms (median of {iters} after a warm-up)", flush=True)
+    return out
+
+
+def small_bf16_encoder(seed):
+    """The tiny encoder of phase 3b with bf16 compute on the card and on the
+    CPU (same weights and inputs), held to the policy's own rounding as
+    measured on the CPU (CPU bf16 against CPU f32)."""
+    from dataclasses import replace
+
+    from splatter360_tpu_torch.models.adapter import GaussianAdapterConfig
+    from splatter360_tpu_torch.models.encoder import EncoderConfig
+    from splatter360_tpu_torch.serve import build_model, encode
+
+    cfg = EncoderConfig(
+        d_feature=32, num_depth_candidates=16, costvolume_unet_feat_dim=32,
+        costvolume_unet_channel_mult=(1, 1), costvolume_unet_attn_res=(2,),
+        depth_unet_feat_dim=8, depth_unet_attn_res=(8,), depth_unet_channel_mult=(1, 1, 1, 1),
+        gaussian_adapter=GaussianAdapterConfig(sh_degree=1), bf16_compute=True)
+    rng = np.random.default_rng(seed)
+    img = rng.uniform(0, 1, (1, 2, 64, 256, 3)).astype(np.float32)
+    pose = np.tile(np.eye(4, dtype=np.float32), (1, 2, 1, 1))
+    pose[..., :3, 3] = rng.normal(0, 0.2, (1, 2, 3))
+    near, far = np.full((1, 2), 0.1, np.float32), np.full((1, 2), 10.0, np.float32)
+    runs = {}
+    for name, c, dev in (("cpu f32", replace(cfg, bf16_compute=False), "cpu"),
+                         ("cpu bf16", cfg, "cpu"), ("gpu bf16", cfg, "cuda")):
+        model = build_model(c, seed=seed, device=dev)
+        g, d = encode(model, *(torch.as_tensor(x, device=dev) for x in (img, pose, near, far)),
+                      device=dev)
+        runs[name] = [x.float().cpu() for x in (*g, d)]
+    for i, leaf in enumerate(("means", "covariances", "harmonics", "opacities", "depth_map")):
+        f32, c16, g16 = (runs[k][i] for k in ("cpu f32", "cpu bf16", "gpu bf16"))
+        scale = float(f32.abs().max()) + 1e-12
+        d_gpu, d_pol = (float((a - b).abs().max()) / scale for a, b in ((g16, c16), (c16, f32)))
+        m_gpu, m_pol = (float((a - b).abs().mean()) / scale for a, b in ((g16, c16), (c16, f32)))
+        print(f"  bf16 encoder {leaf}: max|gpu-cpu| {d_gpu:.3e} vs the policy's {d_pol:.3e}; "
+              f"mean {m_gpu:.3e} vs {m_pol:.3e}")
+        if runs["gpu bf16"][i].dtype != torch.float32:
+            raise AssertionError(f"bf16 encoder {leaf} leaves in {runs['gpu bf16'][i].dtype}")
+        if d_gpu > BF16_RATIO * d_pol or m_gpu > BF16_MEAN_RATIO * m_pol:
+            raise AssertionError(f"bf16 encoder {leaf}: GPU differs from the CPU past the "
+                                 f"policy's rounding")
+
+
+@phase("3l. CLI evaluation on configs/hm3d.yaml: bf16 compute, 2 context panoramas on ERP and "
+       "on cube faces, 3 on ERP")
+def phase_cli_eval(seed):
+    from splatter360_tpu_torch import native
+    from splatter360_tpu_torch.config import load_config
+    from splatter360_tpu_torch.train import checkpoint as ckpt
+    from splatter360_tpu_torch.train.state import create_train_state
+
+    have = {m: importlib.util.find_spec(m) is not None for m in ("yaml", "imageio", "matplotlib")}
+    have["native loader (g++, zstd)"] = native.available()
+    print(f"available: {have}" + ("" if native.available() else
+                                  f"\n  loader: {native.build_error()}"), flush=True)
+    root = Path(tempfile.mkdtemp(prefix="splat360_cli_"))
+    try:
+        fmt = cli_scenes(root / "data", seed)
+        print(f"{CLI_SCENES} test scenes of {CLI_FRAMES} frames written as {fmt}", flush=True)
+        cfg = load_config(str(CONFIG), ["mode=test"])
+        if not cfg.model.bf16_compute:
+            raise AssertionError("configs/hm3d.yaml does not load with bf16_compute")
+        state = create_train_state(cfg.model, cfg.train, seed=seed, device="cuda")
+        ckpt.save_checkpoint(root / "ckpt", 1, state)
+        saved = {k: v.detach().cpu().clone() for k, v in state.model.state_dict().items()}
+        del state
+        base = [str(CONFIG), "mode=test", f"dataset.roots=[{root / 'data'}]",
+                f"checkpointing.load={root / 'ckpt'}", "test.eval_depth=true",
+                "test.eval_time_skip_steps=1"]
+        fused, unfused = "composite_forward_fused", "composite_forward_unfused"
+        runs = {
+            "ERP": cli_run("(a) 2 context panoramas, ERP scoring",
+                           [*base, f"test.output_path={root / 'a'}"], fused, saved),
+            "cubes": cli_run("(b) 2 context panoramas, test.eval_on_cubes",
+                             [*base, "test.eval_on_cubes=true", f"test.output_path={root / 'b'}"],
+                             fused, saved),
+            "3-view": cli_run("(c) 3 context panoramas, ERP scoring",
+                              [*base, f"dataset.view_sampler.num_context_views={N_CTX3}",
+                               f"test.output_path={root / 'c'}"], unfused, saved),
+        }
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    times = encoder_times(seed)
+    small_bf16_encoder(seed)
+    return dict(runs=runs, encoder_ms={f"{k[0]} {k[1]} views": v for k, v in times.items()})
+
+
 def fwd_row(label, res, unfused):
     """A forward kernel's row on res["inp"]: its ms (CUDA events), the plain
     version's ms and the bound from res["stats"] (compare_kernel_plain's)."""
@@ -1523,6 +1731,7 @@ def main():
     ctrain = phase_train_cubes(args.seed) or {}
     phase_small_train_cubes(args.seed)
     cremat = phase_train_remat(args.seed, ctrain)
+    cli = phase_cli_eval(args.seed)
     rows = phase_timing(check, serve, bcheck, train, ucheck, ubcheck, serve3, train3, pin,
                         cserve, ctrain, cremat) or {}
     # each path's own kernels, counted over its own run
@@ -1537,7 +1746,10 @@ def main():
             ("cube training", ctrain.get(N_CTX), fused),
             ("3-view cube serving", cserve.get(N_CTX3), unfused[:1]),
             ("3-view cube training", ctrain.get(N_CTX3), unfused),
-            ("cube training, TrainConfig() with remat_faces", cremat, fused)):
+            ("cube training, TrainConfig() with remat_faces", cremat, fused),
+            ("CLI evaluation, ERP", (cli or {}).get("runs", {}).get("ERP"), fused[:1]),
+            ("CLI evaluation, cubes", (cli or {}).get("runs", {}).get("cubes"), fused[:1]),
+            ("CLI evaluation, 3 views", (cli or {}).get("runs", {}).get("3-view"), unfused[:1])):
         if res is None:
             failures.append(f"{label} run missing")
         elif min(res["launches"].get(k, 0) for k in names) == 0:
@@ -1576,6 +1788,7 @@ def main():
             rows["unfused backward train 4 views"], ctrain[N_CTX3],
             rows["unfused backward cube train 24 faces"]),
     ]
+    print(json.dumps({"cli_eval": cli, "card": smi}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

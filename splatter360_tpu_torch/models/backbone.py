@@ -98,5 +98,6 @@ class BackboneMultiview(nn.Module):
             pos = pos.repeat(attn_splits, attn_splits, 1)
         else:
             pos = sine_position_embedding(fh, fw, c, images.device)
-        trans = self.MultiViewFeatureTransformer_0(cnn_features + pos, attn_splits=attn_splits)
+        trans = self.MultiViewFeatureTransformer_0(cnn_features + pos.to(cnn_features.dtype),
+                                                   attn_splits=attn_splits)
         return trans, cnn_features

@@ -4,7 +4,11 @@ Counterpart of splatter360_tpu/models/costvolume.py: log/inverse/linear
 depth ladders, a seam-wrapped spherical sweep, dot-product correlation
 averaged over the other views, cost-volume U-Net, softmax depth expectation,
 x8 upsampling, full-resolution refine U-Net and the Gaussian heads. The
-sweep geometry and the depth/disparity math stay float32.
+sweep geometry and the depth/disparity math stay float32 under the bf16
+compute policy, as in the JAX package: the correlation sums bf16 products in
+float32 (XLA's preferred_element_type) and rounds after the view average,
+the depth softmax runs in float32, and the raw Gaussian channels leave in
+float32 for the adapter.
 """
 
 from __future__ import annotations
@@ -59,15 +63,15 @@ def build_cost_volume(features: torch.Tensor, extrinsics: torch.Tensor,
     for bi in range(b):
         per_ref = []
         for ref in range(v):
-            corr_sum = features.new_zeros((h, w, candidates.shape[-1]))
+            corr_sum = features.new_zeros((h, w, candidates.shape[-1]), dtype=torch.float32)
             for other in range(v):
                 if other == ref:
                     continue
                 rel = w2c[bi, other] @ extrinsics[bi, ref]
                 warped = spherical_sweep_warp(features[bi, other], rel, candidates[bi, ref])
                 corr_sum = corr_sum + torch.einsum(
-                    "hwc,dhwc->hwd", features[bi, ref], warped) / (c ** 0.5)
-            per_ref.append(corr_sum / (v - 1))
+                    "hwc,dhwc->hwd", features[bi, ref].float(), warped.float()) / (c ** 0.5)
+            per_ref.append((corr_sum / (v - 1)).to(features.dtype))
         out.append(torch.stack(per_ref))
     return torch.stack(out)
 
@@ -139,7 +143,9 @@ class DepthPredictor360(nn.Module):
         proj_feature = self.proj_feature(proj_in_fullres)
 
         imgs = images.reshape(b * v, hh, ww, 3)
-        refine_in = torch.cat([imgs, proj_feature, fullres_disp, pdf_max_full], dim=-1)
+        dt = features.dtype
+        refine_in = torch.cat([imgs, proj_feature, fullres_disp.to(dt), pdf_max_full.to(dt)],
+                              dim=-1)
         y = gelu(self.GroupNorm_1(self.Conv_4(refine_in)))
         refine_out = self.refine_unet(y, num_views=v)
 

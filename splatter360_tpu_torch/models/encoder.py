@@ -2,13 +2,15 @@
 
 Counterpart of splatter360_tpu/models/encoder.py, stages (2)-(6): cube
 branch backbone -> cube_to_erp, ERP branch backbone, CEE fusion, depth
-predictor, Gaussian adapter. Computes in float32. Options off the HM3D path
-raise NotImplementedError (see ROADMAP.md).
+predictor, Gaussian adapter. `apply_encoder` runs it under the config's
+precision policy: float32, or with `bf16_compute` the JAX package's bf16
+policy. Options off the HM3D path raise NotImplementedError (see
+ROADMAP.md).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Sequence
 
 import torch
@@ -48,6 +50,8 @@ class EncoderConfig:
     depth_sampling_type: str = "log_depth"
     use_cross_view_self_attn: bool = True
     fusion_type: str = "cee"
+    # bf16 network compute over float32 master parameters (apply_encoder)
+    bf16_compute: bool = False
     wo_depth_refine: bool = False
     wo_cost_volume: bool = False
     wo_backbone_cross_attn: bool = False
@@ -60,9 +64,9 @@ class EncoderConfig:
     epipolar_num_samples: int = 32
 
 
-# configs/hm3d.yaml `model:` block. Its `bf16_compute: true` is a precision
-# policy this port does not implement yet: the port computes in float32.
+# configs/hm3d.yaml `model:` block, bf16 compute included
 HM3D = EncoderConfig(
+    bf16_compute=True,
     d_feature=128,
     num_depth_candidates=128,
     downscale_factor=8,
@@ -78,22 +82,33 @@ HM3D = EncoderConfig(
     add_mono_feat=False,
     vit_type="vits",
 )
+# the flagship model in float32, the precision of the port's numbers before
+# the bf16 policy was ported
+HM3D_F32 = replace(HM3D, bf16_compute=False)
 
 _UNPORTED_FLAGS = ("add_mono_feat", "use_epipolar_trans", "wo_depth_refine", "wo_cost_volume",
                    "wo_backbone_cross_attn", "wo_cost_volume_refine", "wo_cube_encoder",
                    "wo_erp_encoder")
 
 
+def check_ported(cfg: EncoderConfig) -> None:
+    """Raise NotImplementedError for an option off the ported path."""
+    for flag in _UNPORTED_FLAGS:
+        if getattr(cfg, flag):
+            raise NotImplementedError(
+                f"model.{flag}=True is not ported (ROADMAP.md Queue 1 item 6)")
+    if cfg.fusion_type != "cee":
+        raise NotImplementedError(
+            f"model.fusion_type={cfg.fusion_type!r} is not ported (ROADMAP.md Queue 1 item 6)")
+    if cfg.gaussians_per_pixel != 1 or cfg.num_surfaces != 1:
+        raise NotImplementedError("model.gaussians_per_pixel/num_surfaces > 1 is not ported "
+                                  "(ROADMAP.md Queue 1 item 6)")
+
+
 class EncoderCostVolume360(nn.Module):
     def __init__(self, cfg: EncoderConfig):
         super().__init__()
-        for flag in _UNPORTED_FLAGS:
-            if getattr(cfg, flag):
-                raise NotImplementedError(f"{flag}=True is not ported")
-        if cfg.fusion_type != "cee":
-            raise NotImplementedError(f"fusion_type={cfg.fusion_type!r} is not ported")
-        if cfg.gaussians_per_pixel != 1 or cfg.num_surfaces != 1:
-            raise NotImplementedError("gaussians_per_pixel/num_surfaces > 1 is not ported")
+        check_ported(cfg)
         self.cfg = cfg
         c, ds = cfg.d_feature, cfg.downscale_factor
         self.backbone_cube = BackboneMultiview(feature_channels=c, downscale_factor=ds)
@@ -151,3 +166,24 @@ class EncoderCostVolume360(nn.Module):
         gaussians = adapt_gaussians(cfg.gaussian_adapter, extrinsics_sphere, depths,
                                     opacities, raw_gaussians[..., 2:], (h, w))
         return gaussians, depth_map
+
+
+def apply_encoder(model: EncoderCostVolume360, image_sphere, image_cubes, extrinsics_sphere,
+                  near, far, global_step: int = 0) -> tuple[Gaussians, torch.Tensor]:
+    """model(...) under its config's precision policy.
+
+    With `bf16_compute`, the JAX package's policy (_mixed_precision_apply,
+    splatter360_tpu/train/state.py:108-130), not torch.autocast: every
+    float32 parameter and both image inputs are cast to bf16 for this apply
+    (torch.func.functional_call), poses and near/far stay float32, and the
+    layers keep the JAX package's float32 islands. The casts' backward
+    returns float32 gradients to the float32 master parameters. The
+    Gaussians and the depth map leave in float32."""
+    args = (extrinsics_sphere, near, far, global_step)
+    if not model.cfg.bf16_compute:
+        return model(image_sphere, image_cubes, *args)
+    bf16 = torch.bfloat16
+    params = {name: p.to(bf16) if p.dtype == torch.float32 else p
+              for name, p in model.named_parameters()}
+    return torch.func.functional_call(
+        model, params, (image_sphere.to(bf16), image_cubes.to(bf16), *args))

@@ -14,7 +14,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from .layers import gelu, layer_norm
+from .layers import const, gelu, layer_norm
 
 
 @functools.lru_cache(maxsize=32)
@@ -69,7 +69,7 @@ class TransformerLayer(nn.Module):
     def forward(self, source, target, mask=None):
         c = source.shape[-1]
         q, k, v = self.q_proj(source), self.k_proj(target), self.v_proj(target)
-        scores = q @ k.transpose(-1, -2) / (c ** 0.5)
+        scores = q @ k.transpose(-1, -2) / const(c ** 0.5, q)
         if mask is not None:
             scores = scores + mask
         attn = torch.softmax(scores.float(), dim=-1).to(scores.dtype)

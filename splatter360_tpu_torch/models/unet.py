@@ -11,10 +11,9 @@ from collections import defaultdict
 from typing import Sequence
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
-from .layers import Conv, GroupNorm
+from .layers import Conv, Dense, GroupNorm, const, silu
 
 
 def _gn(c: int) -> GroupNorm:
@@ -31,8 +30,8 @@ class ResBlock(nn.Module):
         self.Conv_2 = Conv(in_channels, out_channels, 1) if in_channels != out_channels else None
 
     def forward(self, x):
-        h = self.Conv_0(F.silu(self.GroupNorm_0(x)))
-        h = self.Conv_1(F.silu(self.GroupNorm_1(h)))
+        h = self.Conv_0(silu(self.GroupNorm_0(x)))
+        h = self.Conv_1(silu(self.GroupNorm_1(h)))
         if self.Conv_2 is not None:
             x = self.Conv_2(x)
         return x + h
@@ -46,8 +45,8 @@ class AttentionBlock(nn.Module):
         self.heads = max(channels // num_head_channels, 1)
         self.cross_view = cross_view
         self.GroupNorm_0 = _gn(channels)
-        self.qkv = nn.Linear(channels, 3 * channels)
-        self.proj = nn.Linear(channels, channels)
+        self.qkv = Dense(channels, 3 * channels)
+        self.proj = Dense(channels, channels)
 
     def forward(self, x, num_views: int):
         bv, h, w, c = x.shape
@@ -57,7 +56,7 @@ class AttentionBlock(nn.Module):
         if self.cross_view and num_views > 1:
             b, l = bv // num_views, num_views * h * w
         q, k, v = (t.reshape(b, l, nh, d).transpose(1, 2) for t in (q, k, v))
-        scores = q @ k.transpose(-1, -2) / d ** 0.5
+        scores = q @ k.transpose(-1, -2) / const(d ** 0.5, q)
         attn = torch.softmax(scores.float(), dim=-1).to(scores.dtype)
         out = (attn @ v).transpose(1, 2).reshape(bv, h * w, c)
         return x + self.proj(out).reshape(bv, h, w, c)
@@ -133,7 +132,7 @@ class UNet2D(nn.Module):
                 h = h.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
                 h = getattr(self, name)(h)
             elif op == "norm":
-                h = F.silu(getattr(self, name)(h))
+                h = silu(getattr(self, name)(h))
             else:
                 h = getattr(self, name)(h)
         return h

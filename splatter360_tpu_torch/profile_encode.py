@@ -1,11 +1,13 @@
 """Profile one serving encode at HM3D width on the card.
 
-    python -m splatter360_tpu_torch.profile_encode [--views 2 3] [--seed 0]
+    python -m splatter360_tpu_torch.profile_encode [--views 2 3] [--precision f32 bf16] [--seed 0]
 
-For each number of context panoramas (512x1024, seeded random weights and
-inputs): one warm-up encode, then one encode under torch.profiler with
-device activity only. Prints its host-clock time, the device time summed
-over its kernels and the kernels that take the most of it.
+For each precision of the flagship model (f32: HM3D_F32; bf16: HM3D, the
+bf16 compute of configs/hm3d.yaml) and each number of context panoramas
+(512x1024, seeded random weights and inputs): one warm-up encode, then one
+encode under torch.profiler with device activity only. Prints its
+host-clock time, the device time summed over its kernels and the kernels
+that take the most of it.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ import time
 
 import torch
 
-from .models.encoder import HM3D
+from .models.encoder import HM3D, HM3D_F32
 from .serve import build_model, encode
 
 H, W = 512, 1024
@@ -61,14 +63,17 @@ def profile_encode(model, inputs, rows: int = 8) -> str:
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--views", type=int, nargs="+", default=[2, 3])
+    ap.add_argument("--precision", nargs="+", choices=("f32", "bf16"), default=["f32"])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
-    model = build_model(HM3D, seed=args.seed)
-    for n_ctx in args.views:
-        inputs = context_inputs(n_ctx, args.seed + 1)
-        encode(model, *inputs)  # warm-up
-        print(f"[{n_ctx} context panoramas] encode under the profiler: "
-              f"{profile_encode(model, inputs)}", flush=True)
+    for precision in args.precision:
+        model = build_model(HM3D if precision == "bf16" else HM3D_F32, seed=args.seed)
+        for n_ctx in args.views:
+            inputs = context_inputs(n_ctx, args.seed + 1)
+            encode(model, *inputs)  # warm-up
+            print(f"[{precision}, {n_ctx} context panoramas] encode under the profiler: "
+                  f"{profile_encode(model, inputs)}", flush=True)
+        del model
 
 
 if __name__ == "__main__":

@@ -11,8 +11,10 @@ evaluator.py: `_encode`, `_decode_erp`, `_decode_cubes`) and `_context_cubes`
     faces = render_cube_views(gaussians, target_c2w, near_t, far_t, 256)
 
 Everything runs on the card unless the caller passes device="cpu"; with no
-card present the entry points raise. The slice computes in float32 with TF32
-off in matmuls and cuDNN convolutions (device.set_f32_policy).
+card present the entry points raise. The encoder runs under its config's
+precision policy (models/encoder.apply_encoder: float32, or bf16 compute
+with the JAX package's float32 islands); the renderer computes in float32,
+with TF32 off in matmuls and cuDNN convolutions (device.set_f32_policy).
 """
 
 from __future__ import annotations
@@ -24,11 +26,11 @@ import torch
 from .device import resolve_device, set_f32_policy
 from .geometry.cubemap import erp_to_cube
 from .models import decoder
-from .models.encoder import EncoderConfig, EncoderCostVolume360
+from .models.encoder import EncoderConfig, EncoderCostVolume360, apply_encoder
 from .models.types import Gaussians
 
 # Evaluator encodes with the opacity warm-up finished
-_EVAL_GLOBAL_STEP = 10**9
+EVAL_GLOBAL_STEP = 10**9
 
 
 def init_weights(model: torch.nn.Module, seed: int) -> None:
@@ -82,7 +84,7 @@ def encode(model: EncoderCostVolume360, image_sphere, extrinsics, near, far,
     set_f32_policy()
     image_sphere, extrinsics, near, far = _on(dev, image_sphere, extrinsics, near, far)
     cubes = context_cubes(image_sphere, image_sphere.shape[2] // 2)
-    return model(image_sphere, cubes, extrinsics, near, far, _EVAL_GLOBAL_STEP)
+    return apply_encoder(model, image_sphere, cubes, extrinsics, near, far, EVAL_GLOBAL_STEP)
 
 
 @torch.no_grad()

@@ -88,3 +88,30 @@ def init_lpips(model: LPIPS, seed: int) -> None:
                 p.copy_(torch.randn(p.shape, generator=gen) / p[0].numel() ** 0.5)
             else:
                 p.zero_()
+
+
+def make_lpips_fn(weights_path: str | None = None, device: str | torch.device = "cuda"):
+    """LPIPS distance fn(pred [B, H, W, 3] in [0, 1], gt) -> [B], frozen, on
+    `device`: the counterpart of make_lpips_fn (splatter360_tpu/train/
+    lpips_jax.py). No LPIPS weights are in the repository, so the VGG
+    features are seeded random (init_lpips, seed 0), with the same warning;
+    loading a weights file is not ported (ROADMAP.md Queue 1 item 4)."""
+    import sys
+
+    from ..device import resolve_device
+
+    if weights_path:
+        raise NotImplementedError("loading LPIPS weights (train.loss.lpips_weights) is not "
+                                  "ported (ROADMAP.md Queue 1 item 4)")
+    print("warning: LPIPS using seeded-random VGG features (no weights checkpoint) — values "
+          "are run-stable but not comparable to published LPIPS; set train.loss.lpips_weights "
+          "for parity.", file=sys.stderr)
+    model = LPIPS()
+    init_lpips(model, 0)
+    model = model.requires_grad_(False).to(resolve_device(device)).eval()
+
+    @torch.no_grad()
+    def lpips_fn(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
+        return model(pred, gt)
+
+    return lpips_fn

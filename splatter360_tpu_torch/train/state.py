@@ -17,8 +17,10 @@ target view and takes the MSE against the targets resampled to faces;
 "erp" renders the target panoramas and takes the sin(phi)-weighted ERP
 MSE. A batch is the JAX package's dict: {"context": {image_sphere [B, V, H,
 W, 3], extrinsics_sphere [B, V, 4, 4], depth_sphere [B, V, H, W], near, far
-[B, V]}, "target": {image_sphere, extrinsics_sphere, near, far}}. Computes
-in float32 with TF32 off.
+[B, V]}, "target": {image_sphere, extrinsics_sphere, near, far}}. The
+encoder runs under its config's precision policy (models/encoder.
+apply_encoder: float32, or bf16 compute over float32 master parameters);
+everything else computes in float32 with TF32 off.
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ import torch
 
 from ..device import resolve_device, set_f32_policy
 from ..models import decoder
-from ..models.encoder import EncoderConfig, EncoderCostVolume360
+from ..models.encoder import EncoderConfig, EncoderCostVolume360, apply_encoder
 from ..serve import build_model, context_cubes
 from .losses import LossConfig, mse_loss, sin_weighted_depth_l1, sin_weighted_mse
 from .lpips import LPIPS, init_lpips
@@ -42,7 +44,8 @@ from .metrics import compute_psnr
 @dataclass(frozen=True)
 class OptimizerConfig:
     lr: float = 2e-4
-    cosine_lr: bool = True  # False (optax's linear warm-up) is not ported
+    warm_up_steps: int = 2000  # the linear warm-up schedule's (cosine_lr False: not ported)
+    cosine_lr: bool = True
     max_steps: int = 100_000
     grad_clip: float = 0.5
 
@@ -53,25 +56,45 @@ class TrainConfig:
     loss: LossConfig = dataclasses.field(default_factory=LossConfig)
     supervision: str = "cubes"  # "cubes" | "erp"
     cube_face_size: Optional[int] = None  # default: H // 2
+    # "pallas": the tile compositor, whose CUDA kernels are the Pallas
+    # kernels' counterparts; "jax" (composite_jax) is not ported
+    render_backend: str = "pallas"
+    max_per_tile: int = 2048  # the "jax" backend's segment cap
+    wo_depth_supervise: bool = False
+    # the JAX package's XLA face schedule (lax.map, vmap or "unroll" of the
+    # supervision faces): it bounds memory inside one traced program and does
+    # not change the function; the port renders an item's faces in one launch
+    # whatever its value (remat_faces is the port's memory device)
+    sequential_faces: "bool | str" = True
     # render each target view's 6 faces again in the backward instead of
     # keeping their activations (torch.utils.checkpoint); hm3d.yaml sets False
     remat_faces: bool = True
-    shard_faces: bool = False
     shard_render: bool = False
+    shard_faces: bool = False
 
 
-def _check_ported(train_cfg: TrainConfig) -> None:
+def check_ported(train_cfg: TrainConfig) -> None:
+    """Raise for a value off the ported path (NotImplementedError, naming
+    its ROADMAP.md item) or an unknown supervision (ValueError)."""
     if train_cfg.supervision not in ("cubes", "erp"):
         raise ValueError(f"supervision={train_cfg.supervision!r}: expected 'cubes' or 'erp'")
+    if train_cfg.render_backend != "pallas":
+        raise NotImplementedError(
+            f"train.render_backend={train_cfg.render_backend!r} is not ported (ROADMAP.md Queue 1 "
+            f"item 5); the port's compositor is the counterpart of 'pallas'")
     for flag in ("shard_faces", "shard_render"):
         if getattr(train_cfg, flag):
-            raise NotImplementedError(f"{flag}=True is not ported")
+            raise NotImplementedError(
+                f"train.{flag}=True is not ported (ROADMAP.md Queue 1 item 7)")
     if not train_cfg.optimizer.cosine_lr:
-        raise NotImplementedError("cosine_lr=False (the linear warm-up schedule) is not ported")
+        raise NotImplementedError("train.optimizer.cosine_lr=False (the linear warm-up schedule) "
+                                  "is not ported (ROADMAP.md Queue 1 item 4)")
     if train_cfg.loss.lpips_weights:
-        raise NotImplementedError("loading LPIPS weights (loss.lpips_weights) is not ported")
+        raise NotImplementedError("loading LPIPS weights (train.loss.lpips_weights) is not "
+                                  "ported (ROADMAP.md Queue 1 item 4)")
     if train_cfg.loss.depth_smoothness_weight > 0:
-        raise NotImplementedError("depth_smoothness_weight > 0 is not ported")
+        raise NotImplementedError("train.loss.depth_smoothness_weight > 0 is not ported "
+                                  "(ROADMAP.md Queue 1 item 4)")
 
 
 def learning_rate(cfg: OptimizerConfig, count: int) -> float:
@@ -126,7 +149,7 @@ def create_train_state(encoder_cfg: EncoderConfig, train_cfg: TrainConfig, seed:
     """The encoder with `state_dict` or seeded random weights, the frozen
     LPIPS network (when its weight is > 0) with `lpips_state` or seeded
     random features, Adam and a step counter at 0, on `device`."""
-    _check_ported(train_cfg)
+    check_ported(train_cfg)
     dev = resolve_device(device)
     set_f32_policy()
     model = build_model(encoder_cfg, seed=seed, device=dev, state_dict=state_dict).train()
@@ -160,8 +183,8 @@ def compute_losses(state: TrainState, batch: Mapping,
     tcfg = state.train_cfg
     h, w = ctx["image_sphere"].shape[2:4]
     face = tcfg.cube_face_size or h // 2
-    gaussians, pred_depth = state.model(
-        ctx["image_sphere"], context_cubes(ctx["image_sphere"], face),
+    gaussians, pred_depth = apply_encoder(
+        state.model, ctx["image_sphere"], context_cubes(ctx["image_sphere"], face),
         ctx["extrinsics_sphere"], ctx["near"], ctx["far"], state.step)
     mark("encoder")
     if tcfg.supervision == "cubes":
@@ -194,7 +217,7 @@ def compute_losses(state: TrainState, batch: Mapping,
             lp = torch.zeros((), device=dev)
         total = total + lcfg.lpips_weight * lp
         metrics["loss_lpips"] = lp
-    if lcfg.depth_weight > 0:
+    if not tcfg.wo_depth_supervise and lcfg.depth_weight > 0:
         ld = sin_weighted_depth_l1(pred_depth, ctx["depth_sphere"], ctx["far"])
         total = total + lcfg.depth_weight * ld
         metrics["loss_depth"] = ld
@@ -224,3 +247,16 @@ def train_step(state: TrainState, batch: Mapping,
     state.step += 1
     mark("optimizer")
     return {k: v.detach() for k, v in metrics.items()}
+
+
+def make_eval_step(train_cfg: TrainConfig):
+    """The JAX make_eval_step: eval_step(state, batch) -> the metrics of
+    compute_losses with `train_cfg`, at the state's step, without gradients."""
+    check_ported(train_cfg)
+
+    @torch.no_grad()
+    def eval_step(state: TrainState, batch: Mapping) -> dict[str, torch.Tensor]:
+        _, metrics = compute_losses(dataclasses.replace(state, train_cfg=train_cfg), batch)
+        return metrics
+
+    return eval_step

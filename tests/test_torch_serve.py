@@ -170,15 +170,11 @@ def test_entry_points_need_the_card_unless_told(monkeypatch):
 
 
 def test_hm3d_preset_matches_yaml():
-    """HM3D carries configs/hm3d.yaml's model block (the card's machine has
-    no pyyaml, so the preset lives in code). bf16_compute is a precision
-    policy the float32 port does not implement yet."""
+    """HM3D carries configs/hm3d.yaml's model block in full, bf16_compute
+    included."""
     model = yaml.safe_load((REPO / "configs" / "hm3d.yaml").read_text())["model"]
-    deferred = {"bf16_compute"}
     preset = asdict(HM3D)
     for key, value in model.items():
-        if key in deferred:
-            continue
         got = preset[key]
         if isinstance(value, list):
             got, value = list(got), list(value)
