@@ -53,6 +53,17 @@ Phases (any failure ends in a non-zero exit and no result line):
      the fused forward kernel launched on the 2-view runs and the unfused one
      on the 3-view run; bf16 against f32 encoder time on the same requests;
      a GPU against a CPU bf16 encoder at 64x256;
+  3m. the CLI's training mode (main ... configs/hm3d.yaml mode=train) on 3
+     seeded 512x1024 train scenes of 24 frames and a val scene, bf16 compute
+     at B = 1: (a) 4 steps with a sanity validation and validations at
+     steps 2 and 4 (every artefact), checkpoints at 2 and 4, TensorBoard
+     scalars read back, a torch.profiler trace of step 3; the same command
+     resumed to step 6 (parameters and Adam moments restored as saved);
+     (b) 2 steps with 3 context panoramas (the unfused pair); (c) the tiny
+     f32 model at 64x256 through mode=train on the card and with --device
+     cpu from one checkpoint, the logged losses at 1e-3 relative; with
+     launches, step ms, prefetch waits, validation and checkpoint seconds
+     and peak memory;
   4. time each kernel and its plain version with CUDA events, the unfused
      path's pack and scatter apart, the fused kernels on the 3-view inputs,
      and the serving render stage by stage; both backward kernels at their
@@ -64,8 +75,10 @@ Phases (any failure ends in a non-zero exit and no result line):
      every tile capped at 64 blocks, and the blocks the forward's first pass
      sums past a tile's exit; each kernel (ms, bound, plain ms) on the cube
      inputs (2e, 3h, 3i) and the forwards on all the train steps' inputs.
-It prints one JSON line of per-kernel numbers (the ERP path's, and the cube
-path's under cube_*), the nvidia-smi line, and as its last line
+It prints a JSON line of the CLI evaluation (3l), one of the CLI training
+(3m), one of per-kernel numbers (the ERP path's, the cube path's under
+cube_*, and the launches of 3m's runs), the nvidia-smi line, and as its last
+line
 {"ok": true, "device": {...}}.
 """
 
@@ -135,6 +148,16 @@ SPANS = (1, 4, 16, 64, None)
 # encoder, rounding flips of another backend grow to the policy's own size)
 CLI_SCENES, CLI_FRAMES = 3, 12
 BF16_RATIO, BF16_MEAN_RATIO = 1.5, 1.25
+# phase 3m: the CLI's train scenes (24 frames let hm3d.yaml's initial context
+# gaps of 10-20 frames apply unclamped) and its runs' last steps
+TRAIN_SCENES, TRAIN_FRAMES = 3, 24
+CLI_TRAIN_STEPS, CLI_RESUME_STEPS = 4, 6
+# 3m (c): the card's step-2 checkpoint against the CPU's, leaf by leaf: the
+# parameter change and both Adam moments within UPDATE_RTOL in relative L2
+# (tests/test_torch_trainer.py's bar, port against JAX); a leaf whose first
+# moment on the CPU is within STILL_M of the largest (its gradient is zero
+# but for rounding) is held only to move by at most STILL_LR * lr on the card
+UPDATE_RTOL, STILL_M, STILL_LR = 5e-2, 1e-7, 0.1
 CONFIG = Path(__file__).resolve().parent / "configs" / "hm3d.yaml"
 
 failures: list[str] = []
@@ -1360,19 +1383,21 @@ def phase_small_train_cubes(seed):
         comp.FUSED_TABLE_BUDGET = budget
 
 
-def cli_scenes(root: Path, seed: int) -> str:
-    """CLI_SCENES test scenes of CLI_FRAMES 512x1024 frames: random RGB,
-    depth in [0.5, 5] m, poses 10 cm apart on a line. Returns the format
-    written (.s3z or .npz)."""
+def cli_scenes(root: Path, seed: int, split: str = "test", n_scenes: int = CLI_SCENES,
+               n_frames: int = CLI_FRAMES, shape: tuple | None = None) -> str:
+    """n_scenes `split` scenes of n_frames frames of `shape` (default H x
+    W): random RGB, depth in [0.5, 5] m, poses 10 cm apart on a line.
+    Returns the format written (.s3z or .npz)."""
     from splatter360_tpu_torch.data.scene_io import save_scene
 
+    shape = shape or (H, W)
     rng = np.random.default_rng(seed)
-    for i in range(CLI_SCENES):
-        rgb = rng.integers(0, 256, (CLI_FRAMES, H, W, 3), dtype=np.uint8)
-        depth = (rng.uniform(0.5, 5.0, (CLI_FRAMES, H, W)) * 1000).astype(np.uint16)
-        poses = np.tile(np.eye(4, dtype=np.float32), (CLI_FRAMES, 1, 1))
-        poses[:, 0, 3] = 0.1 * np.arange(CLI_FRAMES)
-        path = save_scene(root, "test", f"scene{i}", rgb, depth, poses)
+    for i in range(n_scenes):
+        rgb = rng.integers(0, 256, (n_frames, *shape, 3), dtype=np.uint8)
+        depth = (rng.uniform(0.5, 5.0, (n_frames, *shape)) * 1000).astype(np.uint16)
+        poses = np.tile(np.eye(4, dtype=np.float32), (n_frames, 1, 1))
+        poses[:, 0, 3] = 0.1 * np.arange(n_frames)
+        path = save_scene(root, split, f"{split}{i}", rgb, depth, poses)
     return path.suffix
 
 
@@ -1548,6 +1573,334 @@ def phase_cli_eval(seed):
     times = encoder_times(seed)
     small_bf16_encoder(seed)
     return dict(runs=runs, encoder_ms={f"{k[0]} {k[1]} views": v for k, v in times.items()})
+
+
+class Tee:
+    """stdout that is also kept, to read what a run printed."""
+
+    def __init__(self):
+        self.parts = []
+
+    def write(self, text):
+        self.parts.append(text)
+        return sys.__stdout__.write(text)
+
+    def flush(self):
+        sys.__stdout__.flush()
+
+    def text(self):
+        return "".join(self.parts)
+
+
+def train_run(label, argv, device="cuda", restore_check=None):
+    """One `main(argv)` run of mode=train, instrumented from outside the
+    port: kernel launches over it, each train step's ms (synchronized at
+    both ends), the main loop's waits on the Prefetcher, each validation's
+    and each checkpoint save's seconds (and the file's bytes), the peak
+    memory, what it printed. `restore_check(state, directory)` is called
+    after each restore_checkpoint."""
+    import splatter360_tpu_torch.train.checkpoint as ckpt
+    import splatter360_tpu_torch.train.trainer as trainer
+    from splatter360_tpu_torch.main import main as cli_main
+    from splatter360_tpu_torch.ops.cuda import composite as comp
+
+    rec = dict(step_ms=[], waits_s=[], val_s=[], save_s=[], save_bytes=[])
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    originals = (trainer.train_step, trainer.Prefetcher, trainer.Validator.run,
+                 ckpt.save_checkpoint, ckpt.restore_checkpoint)
+    step_fn, prefetcher, val_run, save, restore = originals
+
+    def timed_step(state, batch):
+        sync()
+        t0 = time.perf_counter()
+        out = step_fn(state, batch)
+        sync()
+        rec["step_ms"].append((state.step, 1e3 * (time.perf_counter() - t0)))
+        return out
+
+    class TimedPrefetcher(prefetcher):
+        def __iter__(self):
+            it = super().__iter__()
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    item = next(it)
+                except StopIteration:
+                    return
+                rec["waits_s"].append(time.perf_counter() - t0)
+                yield item
+
+    def timed_val(self, state, step, writer=None):
+        t0 = time.perf_counter()
+        out = val_run(self, state, step, writer)
+        sync()
+        rec["val_s"].append((step, time.perf_counter() - t0))
+        return out
+
+    def timed_save(directory, step, state, max_to_keep=-1):
+        sync()
+        t0 = time.perf_counter()
+        out = save(directory, step, state, max_to_keep)
+        rec["save_s"].append((step, time.perf_counter() - t0))
+        rec["save_bytes"].append((out / ckpt.FILE).stat().st_size)
+        return out
+
+    def checked_restore(directory, state, step=None):
+        state, ok = restore(directory, state, step)
+        if ok and restore_check is not None:
+            restore_check(state, directory)
+        return state, ok
+
+    if device == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    for k in comp.launch_counts:
+        comp.launch_counts[k] = 0
+    (trainer.train_step, trainer.Prefetcher, trainer.Validator.run, ckpt.save_checkpoint,
+     ckpt.restore_checkpoint) = (timed_step, TimedPrefetcher, timed_val, timed_save,
+                                 checked_restore)
+    tee = Tee()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(tee):
+            state = cli_main([*argv, "--device", device])
+    finally:
+        (trainer.train_step, trainer.Prefetcher, trainer.Validator.run, ckpt.save_checkpoint,
+         ckpt.restore_checkpoint) = originals
+    rec.update(wall_s=time.perf_counter() - t0, launches=dict(comp.launch_counts),
+               printed=tee.text(), step=state.step)
+    if device == "cuda":
+        rec.update(peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                   reserved_gib=torch.cuda.max_memory_reserved() / 2**30)
+    del state
+    later = [ms for step, ms in rec["step_ms"] if step >= 2]
+    print(f"{label}: {rec['wall_s']:.1f} s; train_step ms "
+          f"{[round(ms, 1) for _, ms in rec['step_ms']]} (median of steps 2+ {float(np.median(later)) if later else float('nan'):.1f}); "
+          f"prefetch waits s {[round(w, 4) for w in rec['waits_s']]}; validations s "
+          f"{[(st, round(v, 2)) for st, v in rec['val_s']]}; checkpoint saves s "
+          f"{[(st, round(v, 2)) for st, v in rec['save_s']]} of {rec['save_bytes']} bytes; "
+          + (f"peak {rec['peak_gib']:.2f} GiB allocated, {rec['reserved_gib']:.2f} reserved; "
+             if device == "cuda" else "") + f"launches {rec['launches']}", flush=True)
+    return rec
+
+
+def check_train_out(label, out: Path, ckpt_steps, val_steps, train_steps):
+    """The run's artefacts: checkpoints, validation directories with all
+    four artefacts, event scalars read back finite."""
+    from splatter360_tpu_torch.train.checkpoint import FILE
+    from splatter360_tpu_torch.utils.tb_events import read_scalars
+
+    for step in ckpt_steps:
+        if not (out / "checkpoints" / str(step) / FILE).is_file():
+            raise AssertionError(f"{label}: checkpoint {step} missing")
+    for step in val_steps:
+        vdir = out / "val" / f"{step:08d}"
+        for name in ("comparison.png", "encoder_depth.png", "encoder_vis.png"):
+            if not (vdir / name).is_file():
+                raise AssertionError(f"{label}: {vdir / name} missing")
+        frames = sorted((vdir / "interpolation").glob("*.png"))
+        if not ((vdir / "interpolation.mp4").is_file() or len(frames) == 12):
+            raise AssertionError(f"{label}: no interpolation video under {vdir}")
+    scalars = [x for f in sorted((out / "tb").glob("events.out.tfevents.*"))
+               for x in read_scalars(f)]
+    by_tag = {}
+    for step, tag, value, _ in scalars:
+        by_tag.setdefault(tag, {})[step] = value
+    want = {"train/loss": train_steps, "val/psnr": val_steps, "val/ssim": val_steps}
+    for tag, steps in want.items():
+        got = by_tag.get(tag, {})
+        if sorted(got) != sorted(steps) or not all(math.isfinite(got[s]) for s in steps):
+            raise AssertionError(f"{label}: {tag} scalars {got}, expected finite at {steps}")
+    return by_tag
+
+
+@phase("3m. CLI training on configs/hm3d.yaml: bf16, 2 context panoramas with validation, "
+       "checkpoints, profile and resume; 3 context panoramas; GPU against CPU")
+def phase_cli_train(seed):
+    from splatter360_tpu_torch.config import load_config
+    from splatter360_tpu_torch.ops.cuda import composite as comp
+    from splatter360_tpu_torch.train import checkpoint as ckpt
+
+    fwd, bwd = comp.KERNEL_NAME, comp.BWD_KERNEL_NAME
+    ufwd, ubwd = comp.UNFUSED_KERNEL_NAME, comp.UNFUSED_BWD_KERNEL_NAME
+    root = Path(tempfile.mkdtemp(prefix="splat360_train_"))
+    try:
+        t0 = time.perf_counter()
+        fmt = cli_scenes(root / "data", seed, "train", TRAIN_SCENES, TRAIN_FRAMES)
+        cli_scenes(root / "data", seed + 1, "val", 1, CLI_FRAMES)
+        print(f"{TRAIN_SCENES} train scenes of {TRAIN_FRAMES} frames and 1 val scene of "
+              f"{CLI_FRAMES} written as {fmt} ({time.perf_counter() - t0:.1f} s)", flush=True)
+        if not load_config(str(CONFIG)).model.bf16_compute:
+            raise AssertionError("configs/hm3d.yaml does not load with bf16_compute")
+        out = root / "a"
+        base = [str(CONFIG), "mode=train", f"dataset.roots=[{root / 'data'}]",
+                f"output_dir={out}", "trainer.batch_size=1", "checkpointing.every_n_train_steps=2",
+                "trainer.val_check_interval=2", "trainer.print_log_every_n_steps=1"]
+        runs = {}
+        runs["a"] = a = train_run(
+            "(a) 2 context panoramas, bf16, 4 steps",
+            [*base, f"trainer.max_steps={CLI_TRAIN_STEPS}", "trainer.num_sanity_val_steps=1",
+             "trainer.profile_start=2", "trainer.profile_steps=1"])
+        # a train step launches the fused pair once; a validation the forward
+        # once for its 4 views and once a frame of its video
+        vals = [0, 2, 4]
+        want = {fwd: CLI_TRAIN_STEPS + len(vals) * 13, bwd: CLI_TRAIN_STEPS}
+        if {k: a["launches"][k] for k in want} != want or a["launches"][ufwd] or \
+                a["launches"][ubwd]:
+            raise AssertionError(f"(a): launches {a['launches']}, expected {want}")
+        a["scalars"] = check_train_out("(a)", out, [2, 4], vals, [1, 2, 3, 4])
+        traces = sorted((out / "profile").glob("*.json"))
+        if not traces:
+            raise AssertionError("(a): no chrome trace under profile/")
+        trace = json.loads(traces[0].read_text())
+        events = trace.get("traceEvents", [])
+        kernels = [e for e in events if e.get("cat") == "kernel"]
+        a["trace"] = dict(file=traces[0].name, bytes=traces[0].stat().st_size, events=len(events),
+                          kernels=len(kernels),
+                          kernel_ms=sum(e.get("dur", 0) for e in kernels) / 1e3)
+        print(f"(a) profile: {a['trace']}", flush=True)
+        if not kernels:
+            raise AssertionError("(a): the profiler's trace holds no device kernels")
+
+        saved = torch.load(out / "checkpoints" / "4" / ckpt.FILE, map_location="cpu",
+                           weights_only=True)
+        restored = {}
+
+        def same_as_saved(state, directory):
+            opt = state.optimizer.state_dict()["state"]
+            restored["ok"] = state.step == 4 and all(
+                torch.equal(v.cpu(), saved["params"][k])
+                for k, v in state.model.state_dict().items()) and all(
+                torch.equal(v.cpu(), saved["opt_state"]["state"][i][k])
+                for i, entry in opt.items() for k, v in entry.items())
+
+        runs["resume"] = r = train_run(
+            "(resume) the same command with trainer.max_steps=6",
+            [*base, f"trainer.max_steps={CLI_RESUME_STEPS}", "trainer.num_sanity_val_steps=1"],
+            restore_check=same_as_saved)
+        if f"resumed from step {CLI_TRAIN_STEPS}" not in r["printed"]:
+            raise AssertionError("(resume): no 'resumed from step 4' line")
+        if not restored.get("ok"):
+            raise AssertionError("(resume): parameters or Adam moments not restored as saved")
+        if r["step"] != CLI_RESUME_STEPS or r["launches"][bwd] != CLI_RESUME_STEPS - 4:
+            raise AssertionError(f"(resume): step {r['step']}, launches {r['launches']}")
+        check_train_out("(resume)", out, [2, 4, 6], [0, 2, 4, 6], [1, 2, 3, 4, 5, 6])
+
+        runs["b"] = b = train_run(
+            "(b) 3 context panoramas, bf16, 2 steps",
+            [str(CONFIG), "mode=train", f"dataset.roots=[{root / 'data'}]",
+             f"output_dir={root / 'b'}", "trainer.batch_size=1",
+             f"dataset.view_sampler.num_context_views={N_CTX3}", "trainer.max_steps=2",
+             "trainer.val_check_interval=0", "trainer.num_sanity_val_steps=0",
+             "trainer.print_log_every_n_steps=1"])
+        if (b["launches"][ufwd], b["launches"][ubwd], b["launches"][fwd]) != (2, 2, 0):
+            raise AssertionError(f"(b): launches {b['launches']}")
+        check_train_out("(b)", root / "b", [2], [], [1, 2])
+
+        runs["c"] = cli_train_gpu_cpu(root, seed)
+        for run in runs.values():
+            run.pop("printed", None)
+        return runs
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def cli_train_gpu_cpu(root: Path, seed: int) -> dict:
+    """(c) mode=train of the tiny f32 encoder at 64x256 on the card and with
+    --device cpu, 2 steps each from one saved checkpoint
+    (checkpointing.pretrained_model) on the same seeded scenes: every
+    logged loss at 1e-3 relative (cuDNN sums in another order than the CPU,
+    as in phase 3d), and the step-2 checkpoints through update_gaps."""
+    from splatter360_tpu_torch.config import load_config
+    from splatter360_tpu_torch.ops.cuda import composite as comp
+    from splatter360_tpu_torch.train import checkpoint as ckpt
+    from splatter360_tpu_torch.train.state import create_train_state
+
+    data = root / "small"
+    cli_scenes(data, seed + 2, "train", 2, TRAIN_FRAMES, shape=(64, 256))
+    tiny = ["dataset.image_shape=[64,256]", "model.bf16_compute=false", "model.d_feature=32",
+            "model.num_depth_candidates=16", "model.costvolume_unet_feat_dim=32",
+            "model.costvolume_unet_channel_mult=[1,1]", "model.costvolume_unet_attn_res=[2]",
+            "model.depth_unet_feat_dim=8", "model.depth_unet_attn_res=[8]",
+            "model.depth_unet_channel_mult=[1,1,1,1]", "model.gaussian_adapter.sh_degree=1"]
+    cfg = load_config(str(CONFIG), tiny)
+    state = create_train_state(cfg.model, cfg.train, seed=seed, device="cpu")
+    ckpt.save_checkpoint(root / "small_ckpt", 0, state)
+    names = [n for n, _ in state.model.named_parameters()]
+    del state
+    common = [str(CONFIG), "mode=train", f"dataset.roots=[{data}]", *tiny,
+              f"checkpointing.pretrained_model={root / 'small_ckpt'}", "trainer.batch_size=1",
+              "trainer.max_steps=2",
+              "trainer.val_check_interval=0", "trainer.num_sanity_val_steps=0",
+              "trainer.print_log_every_n_steps=1"]
+    got = {}
+    for dev in ("cuda", "cpu"):
+        out = root / f"small_{dev}"
+        rec = train_run(f"(c) tiny f32 model at 64x256, --device {dev}",
+                        [*common, f"output_dir={out}"], device=dev)
+        if "warm-started weights from pretrained_model" not in rec["printed"]:
+            raise AssertionError(f"(c) {dev}: not warm-started from the saved checkpoint")
+        got[dev] = check_train_out(f"(c) {dev}", out, [2], [], [1, 2])
+        got[f"{dev}_launches"] = rec["launches"]
+    gpu = got["cuda_launches"]
+    if (gpu[comp.KERNEL_NAME], gpu[comp.BWD_KERNEL_NAME]) != (2, 2):
+        raise AssertionError(f"(c): GPU launches {got['cuda_launches']}")
+    if any(got["cpu_launches"].values()):
+        raise AssertionError(f"(c): the CPU run launched kernels {got['cpu_launches']}")
+    worst = 0.0
+    for tag in sorted(t for t in got["cpu"] if t.startswith("train/loss")):
+        for step, ref in got["cpu"][tag].items():
+            rel = abs(got["cuda"][tag][step] - ref) / max(abs(ref), 1e-12)
+            print(f"  {tag} step {step}: cpu {ref:.6g} gpu {got['cuda'][tag][step]:.6g} "
+                  f"({rel:.2e} relative)")
+            worst = max(worst, rel)
+    if worst > 1e-3:
+        raise AssertionError(f"(c): GPU losses differ from the CPU's by {worst:.2e} relative")
+    def load(directory, step):
+        return torch.load(directory / str(step) / ckpt.FILE, map_location="cpu",
+                          weights_only=True)
+
+    gaps = update_gaps(load(root / "small_ckpt", 0)["params"],
+                       load(root / "small_cpu" / "checkpoints", 2),
+                       load(root / "small_cuda" / "checkpoints", 2), names, cfg.train.optimizer)
+    return dict(worst_rel=worst, losses={d: got[d]["train/loss"] for d in ("cuda", "cpu")},
+                updates=gaps)
+
+
+def update_gaps(start: dict, ref: dict, got: dict, names: list, opt_cfg) -> dict:
+    """Checkpoints `got` (the card's) against `ref` (the CPU's), both taken
+    from the parameters `start`, leaf by leaf: the change |got - ref|_2 /
+    |ref|_2 and the same for both Adam moments, at most UPDATE_RTOL; a leaf
+    the CPU holds still (first moment within STILL_M of the largest) must
+    move by at most STILL_LR times the schedule's largest rate on the card
+    too."""
+    from splatter360_tpu_torch.train.state import learning_rate
+
+    lr = max(learning_rate(opt_cfg, c) for c in range(ref["step"]))
+    parts = {}
+    for i, n in enumerate(names):
+        r, g = ref["opt_state"]["state"][i], got["opt_state"]["state"][i]
+        parts[n] = {"update": (ref["params"][n] - start[n], got["params"][n] - start[n]),
+                    "exp_avg": (r["exp_avg"], g["exp_avg"]),
+                    "exp_avg_sq": (r["exp_avg_sq"], g["exp_avg_sq"])}
+    m_max = max(float(p["exp_avg"][0].abs().max()) for p in parts.values())
+    worst, still, still_move = {}, 0, 0.0
+    for n, p in parts.items():
+        if float(p["exp_avg"][0].abs().max()) <= STILL_M * m_max:
+            still += 1
+            still_move = max(still_move, float(p["update"][1].abs().max()) / lr)
+            continue
+        for key, (r, g) in p.items():
+            gap = float((g.double() - r.double()).norm() / r.double().norm())
+            worst[key] = max(worst.get(key, (0.0, "")), (gap, n))
+    out = dict({k: dict(gap=v[0], leaf=v[1]) for k, v in worst.items()}, still_leaves=still,
+               still_move_lr=still_move, leaves=len(names))
+    print(f"(c) step-2 checkpoints, card against CPU (relative L2 a leaf, bar {UPDATE_RTOL}): "
+          f"{out}", flush=True)
+    bad = [k for k, v in worst.items() if v[0] > UPDATE_RTOL]
+    if bad or still_move > STILL_LR:
+        raise AssertionError(f"(c): the card's step-2 checkpoint differs from the CPU's: {out}")
+    return out
 
 
 def fwd_row(label, res, unfused):
@@ -1732,6 +2085,7 @@ def main():
     phase_small_train_cubes(args.seed)
     cremat = phase_train_remat(args.seed, ctrain)
     cli = phase_cli_eval(args.seed)
+    cli_train = phase_cli_train(args.seed) or {}
     rows = phase_timing(check, serve, bcheck, train, ucheck, ubcheck, serve3, train3, pin,
                         cserve, ctrain, cremat) or {}
     # each path's own kernels, counted over its own run
@@ -1749,7 +2103,10 @@ def main():
             ("cube training, TrainConfig() with remat_faces", cremat, fused),
             ("CLI evaluation, ERP", (cli or {}).get("runs", {}).get("ERP"), fused[:1]),
             ("CLI evaluation, cubes", (cli or {}).get("runs", {}).get("cubes"), fused[:1]),
-            ("CLI evaluation, 3 views", (cli or {}).get("runs", {}).get("3-view"), unfused[:1])):
+            ("CLI evaluation, 3 views", (cli or {}).get("runs", {}).get("3-view"), unfused[:1]),
+            ("CLI training", cli_train.get("a"), fused),
+            ("CLI training, resumed", cli_train.get("resume"), fused),
+            ("CLI training, 3 views", cli_train.get("b"), unfused)):
         if res is None:
             failures.append(f"{label} run missing")
         elif min(res["launches"].get(k, 0) for k in names) == 0:
@@ -1761,7 +2118,10 @@ def main():
     def row(name, source, replaces, res, err, timing, cube_res, cube_timing):
         """The kernel's numbers on its ERP path (launches over that path's
         run, ms, plain_ms, bound at its inputs) and, under cube_*, on its
-        cube path; max_abs_err over every check of it."""
+        cube path; max_abs_err over every check of it; cli_train_launches
+        over the CLI's bf16 training run of its path (3m (a), or (b) for
+        the unfused pair)."""
+        ctrain = cli_train["b" if "unfused" in name else "a"]
         return dict(name=name, route="cuda", source=f"splatter360_tpu_torch/csrc/{source}",
                     replaces=f"splatter360_tpu/ops/pallas/composite.py:{replaces}",
                     launches=res["launches"][name], max_abs_err=err, ms=timing["ms"],
@@ -1769,7 +2129,8 @@ def main():
                     bound_by=timing["bound_by"], library_ms=None,
                     cube_launches=cube_res["launches"][name], cube_ms=cube_timing["ms"],
                     cube_plain_ms=cube_timing["plain_ms"], cube_bound_ms=cube_timing["bound_ms"],
-                    cube_bound_by=cube_timing["bound_by"])
+                    cube_bound_by=cube_timing["bound_by"],
+                    cli_train_launches=ctrain["launches"][name])
 
     kernels = [
         row("composite_forward_fused", "composite_fwd.cu", 370, serve,
@@ -1789,6 +2150,7 @@ def main():
             rows["unfused backward cube train 24 faces"]),
     ]
     print(json.dumps({"cli_eval": cli, "card": smi}))
+    print(json.dumps({"cli_train": cli_train, "card": smi}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -9,7 +9,8 @@ An unknown key raises KeyError naming it. YAML is read with PyYAML where it
 is installed, else with utils/yaml_subset.py (the subset the configs use,
 with PyYAML's values). A value off the ported path raises
 NotImplementedError naming its ROADMAP.md item when the config is loaded
-(check_ported); none is ignored.
+(check_ported). `train.loss.depth_smoothness_weight` is accepted and, as in
+the JAX package, changes nothing.
 """
 
 from __future__ import annotations

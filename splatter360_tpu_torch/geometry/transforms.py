@@ -91,3 +91,34 @@ def inverse_se3(pose: torch.Tensor) -> torch.Tensor:
     bottom = torch.zeros_like(pose[..., 3:4, :])
     bottom[..., 3] = 1.0
     return torch.cat([top, bottom], dim=-2)
+
+
+def rotation_6d_to_matrix(d6: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
+    """Gram-Schmidt 6D rotation representation [..., 6] -> [..., 3, 3]."""
+    a1, a2 = d6[..., 0:3], d6[..., 3:6]
+    b1 = a1 / (torch.linalg.norm(a1, dim=-1, keepdim=True) + eps)
+    a2 = a2 - torch.sum(b1 * a2, dim=-1, keepdim=True) * b1
+    b2 = a2 / (torch.linalg.norm(a2, dim=-1, keepdim=True) + eps)
+    b3 = torch.linalg.cross(b1, b2, dim=-1)
+    return torch.stack([b1, b2, b3], dim=-2)
+
+
+def matrix_to_rotation_6d(rot: torch.Tensor) -> torch.Tensor:
+    """[..., 3, 3] -> its first two rows flattened, [..., 6]."""
+    return torch.cat([rot[..., 0, :], rot[..., 1, :]], dim=-1)
+
+
+def interpolate_pose_6d(pose_a: torch.Tensor, pose_b: torch.Tensor, t) -> torch.Tensor:
+    """Interpolate two [..., 4, 4] c2w poses: the translation and the 6D
+    rotation linearly, then re-orthogonalised. t is a scalar or broadcasts
+    against the poses' batch axes."""
+    t = torch.as_tensor(t, dtype=pose_a.dtype, device=pose_a.device)
+    while t.dim() < pose_a.dim() - 2:
+        t = t[..., None]
+    trans = (1 - t)[..., None] * pose_a[..., :3, 3] + t[..., None] * pose_b[..., :3, 3]
+    d6 = ((1 - t)[..., None] * matrix_to_rotation_6d(pose_a[..., :3, :3])
+          + t[..., None] * matrix_to_rotation_6d(pose_b[..., :3, :3]))
+    top = torch.cat([rotation_6d_to_matrix(d6), trans[..., None]], dim=-1)
+    bottom = torch.zeros_like(top[..., :1, :])
+    bottom[..., 3] = 1.0
+    return torch.cat([top, bottom], dim=-2)

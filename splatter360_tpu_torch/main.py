@@ -4,15 +4,17 @@
 
 Counterpart of splatter360_tpu/main.py: builds the RootConfig from the YAML
 file and dotted overrides (config.py), then runs the mode:
+  * train: train the encoder (train/trainer.py: Trainer(cfg).fit()), with
+    resume from <output_dir>/checkpoints, validation, TensorBoard scalars
+    and checkpoints under <output_dir>;
   * test: evaluate the encoder restored (weights only) from
     checkpointing.load (a directory or wandb://run[:vN]) or
     <output_dir>/checkpoints on the test split (train/evaluator.py);
   * generate_index: write <output_dir>/evaluation_index.json;
   * compute_metrics: recompute metrics of <output_dir>/methods/* against
     <output_dir>/gt into <output_dir>/metrics.
-`mode=train` is not ported yet (ROADMAP.md). Everything runs on the card;
-the CPU is used only when asked for (`--device cpu`, or main(argv,
-device="cpu")), never as a fallback.
+Everything runs on the card; the CPU is used only when asked for
+(`--device cpu`, or main(argv, device="cpu")), never as a fallback.
 """
 
 from __future__ import annotations
@@ -40,10 +42,9 @@ def main(argv=None, device: str | torch.device = "cuda"):
     dev = resolve_device(device)
 
     if cfg.mode == "train":
-        raise NotImplementedError(
-            "mode=train is the next slice of the port (ROADMAP.md Queue 1 item 4: Trainer, "
-            "Prefetcher, Validator, resume, tensorboard); the train step is "
-            "splatter360_tpu_torch.train.state.train_step")
+        from .train.trainer import Trainer
+
+        return Trainer(cfg, device=dev).fit()
     if cfg.mode == "test":
         from .data.dataset import SceneDataset
         from .train import checkpoint as ckpt

@@ -2,8 +2,10 @@
 
 Counterpart of splatter360_tpu/train/losses.py: MSE, the 5x5 max-pool
 dilation and erosion of the depth hole mask (reflect padding), and the
-sin(phi)-weighted ERP depth L1 with holes set to far. The edge-aware depth
-smoothness loss is not ported (its weight is 0 in the HM3D recipe).
+sin(phi)-weighted ERP depth L1 with holes set to far.
+`depth_smoothness_weight` is accepted and, as in the JAX package, changes
+nothing: its `compute_losses` never calls the smoothness loss, so that loss
+is not ported (ROADMAP.md Queue 3).
 """
 
 from __future__ import annotations
@@ -20,7 +22,8 @@ class LossConfig:
     mse_weight: float = 1.0
     lpips_weight: float = 0.05
     lpips_apply_after_step: int = 0
-    # a torch LPIPS(net='vgg') checkpoint; loading one is not ported
+    # a torch LPIPS(net='vgg') / torchvision vgg16 checkpoint (lpips.
+    # load_lpips_torch_weights); None: seeded random VGG features
     lpips_weights: str | None = None
     depth_weight: float = 0.1
     depth_smoothness_weight: float = 0.0
@@ -73,3 +76,4 @@ def sin_weighted_depth_l1(
     num = torch.sum(torch.abs(gt - pred_depth) * weight)
     den = torch.clamp(torch.sum(weight), min=1e-10)
     return num / den
+

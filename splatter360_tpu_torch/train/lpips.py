@@ -9,8 +9,9 @@ flax module (`vgg.conv{stage}_{i}`, `lin{i}`) so convert.lpips_state_from_flax
 maps them one to one. The network is frozen: it takes no optimizer state.
 
 No LPIPS weights are in the repository, so `init_lpips` draws seeded random
-VGG features (and lin = 1/C, flax's initial value); loading the released
-weights is not ported.
+VGG features (and lin = 1/C, flax's initial value) unless a torch LPIPS
+state dict is loaded (`load_lpips_torch_weights`, the JAX package's key
+map).
 """
 
 from __future__ import annotations
@@ -90,25 +91,55 @@ def init_lpips(model: LPIPS, seed: int) -> None:
                 p.zero_()
 
 
+# the torchvision vgg16 `features` indices of the 13 convolutions, by stage
+_TORCH_CONV_IDX = ((0, 2), (5, 7), (10, 12, 14), (17, 19, 21), (24, 26, 28))
+
+
+def load_lpips_torch_weights(model: LPIPS, path) -> LPIPS:
+    """Load a torch LPIPS(net='vgg') state dict file into `model` in place,
+    with the key map of the JAX package's load_lpips_torch_weights
+    (lpips_jax.py): the convolutions from `net.slice{s}.{i}.*`, or from the
+    raw torchvision layout `features.{i}.*`, and each lin weight from
+    `lins.{i}.model.1.weight` where the file has it (else it keeps its
+    value). The file must hold a state dict (torch.load with
+    weights_only=True)."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    with torch.no_grad():
+        for si, idxs in enumerate(_TORCH_CONV_IDX):
+            for ci, ti in enumerate(idxs):
+                prefix = f"net.slice{si + 1}.{ti}."
+                if prefix + "weight" not in sd:
+                    prefix = f"features.{ti}."
+                conv = getattr(model.vgg, f"conv{si}_{ci}")
+                conv.weight.copy_(sd[prefix + "weight"])
+                conv.bias.copy_(sd[prefix + "bias"])
+        for i in range(len(_VGG_CFG)):
+            key = f"lins.{i}.model.1.weight"
+            if key in sd:
+                getattr(model, f"lin{i}").copy_(sd[key][0, :, 0, 0])
+    return model
+
+
 def make_lpips_fn(weights_path: str | None = None, device: str | torch.device = "cuda"):
     """LPIPS distance fn(pred [B, H, W, 3] in [0, 1], gt) -> [B], frozen, on
     `device`: the counterpart of make_lpips_fn (splatter360_tpu/train/
-    lpips_jax.py). No LPIPS weights are in the repository, so the VGG
-    features are seeded random (init_lpips, seed 0), with the same warning;
-    loading a weights file is not ported (ROADMAP.md Queue 1 item 4)."""
+    lpips_jax.py): the weights of `weights_path` (load_lpips_torch_weights),
+    or, without one, seeded random VGG features (init_lpips, seed 0), with
+    the JAX package's warning."""
     import sys
 
     from ..device import resolve_device
 
-    if weights_path:
-        raise NotImplementedError("loading LPIPS weights (train.loss.lpips_weights) is not "
-                                  "ported (ROADMAP.md Queue 1 item 4)")
-    print("warning: LPIPS using seeded-random VGG features (no weights checkpoint) — values "
-          "are run-stable but not comparable to published LPIPS; set train.loss.lpips_weights "
-          "for parity.", file=sys.stderr)
+    dev = resolve_device(device)
     model = LPIPS()
-    init_lpips(model, 0)
-    model = model.requires_grad_(False).to(resolve_device(device)).eval()
+    if weights_path:
+        load_lpips_torch_weights(model, weights_path)
+    else:
+        print("warning: LPIPS using seeded-random VGG features (no weights checkpoint) — values "
+              "are run-stable but not comparable to published LPIPS; set "
+              "train.loss.lpips_weights for parity.", file=sys.stderr)
+        init_lpips(model, 0)
+    model = model.requires_grad_(False).to(dev).eval()
 
     @torch.no_grad()
     def lpips_fn(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:

@@ -11,9 +11,10 @@ One step: encode the context panoramas -> Gaussians -> render the targets
 (one compositor launch for all of an item's views or faces, CUDA backward)
 -> the image loss + LPIPS + sin(phi)-weighted depth L1 on the encoder's
 depth map -> global-norm clip (optax's formula) -> Adam with optax's cosine
-one-cycle schedule. The image loss follows `supervision`: "cubes" (the JAX
-default, the reference's protocol) renders the 6 pinhole faces of every
-target view and takes the MSE against the targets resampled to faces;
+one-cycle schedule (or its linear warm-up, `cosine_lr=False`). The image
+loss follows `supervision`: "cubes" (the JAX default, the reference's
+protocol) renders the 6 pinhole faces of every target view and takes the
+MSE against the targets resampled to faces;
 "erp" renders the target panoramas and takes the sin(phi)-weighted ERP
 MSE. A batch is the JAX package's dict: {"context": {image_sphere [B, V, H,
 W, 3], extrinsics_sphere [B, V, 4, 4], depth_sphere [B, V, H, W], near, far
@@ -37,14 +38,14 @@ from ..models import decoder
 from ..models.encoder import EncoderConfig, EncoderCostVolume360, apply_encoder
 from ..serve import build_model, context_cubes
 from .losses import LossConfig, mse_loss, sin_weighted_depth_l1, sin_weighted_mse
-from .lpips import LPIPS, init_lpips
+from .lpips import LPIPS, init_lpips, load_lpips_torch_weights
 from .metrics import compute_psnr
 
 
 @dataclass(frozen=True)
 class OptimizerConfig:
     lr: float = 2e-4
-    warm_up_steps: int = 2000  # the linear warm-up schedule's (cosine_lr False: not ported)
+    warm_up_steps: int = 2000  # the linear warm-up schedule's (cosine_lr False)
     cosine_lr: bool = True
     max_steps: int = 100_000
     grad_clip: float = 0.5
@@ -86,27 +87,31 @@ def check_ported(train_cfg: TrainConfig) -> None:
         if getattr(train_cfg, flag):
             raise NotImplementedError(
                 f"train.{flag}=True is not ported (ROADMAP.md Queue 1 item 7)")
-    if not train_cfg.optimizer.cosine_lr:
-        raise NotImplementedError("train.optimizer.cosine_lr=False (the linear warm-up schedule) "
-                                  "is not ported (ROADMAP.md Queue 1 item 4)")
-    if train_cfg.loss.lpips_weights:
-        raise NotImplementedError("loading LPIPS weights (train.loss.lpips_weights) is not "
-                                  "ported (ROADMAP.md Queue 1 item 4)")
-    if train_cfg.loss.depth_smoothness_weight > 0:
-        raise NotImplementedError("train.loss.depth_smoothness_weight > 0 is not ported "
-                                  "(ROADMAP.md Queue 1 item 4)")
 
 
 def learning_rate(cfg: OptimizerConfig, count: int) -> float:
-    """optax.cosine_onecycle_schedule(steps, lr, pct_start) at update `count`
-    (the count before the increment), with steps = max(max_steps, 2) and
-    pct_start = max(0.01, 1.001 / steps), in optax's float32 arithmetic:
-    from lr/25 up to lr at step int(pct_start * steps), then down to
-    lr/(25 * 1e4) at `steps`, by cosine interpolation."""
+    """The JAX package's schedule at update `count` (the count before the
+    increment), in optax's float32 arithmetic.
+
+    cosine_lr: optax.cosine_onecycle_schedule(steps, lr, pct_start) with
+    steps = max(max_steps, 2) and pct_start = max(0.01, 1.001 / steps): from
+    lr/25 up to lr at step int(pct_start * steps), then down to
+    lr/(25 * 1e4) at `steps`, by cosine interpolation.
+
+    Otherwise optax.linear_schedule(lr / max(w, 1) * 0, lr, w) with w =
+    warm_up_steps: from 0 up to lr at step w, lr after it (0 throughout when
+    w <= 0, optax's constant init_value)."""
+    f32 = np.float32
+    if not cfg.cosine_lr:
+        w = cfg.warm_up_steps
+        init = cfg.lr / max(w, 1) * 0
+        if w <= 0:
+            return float(init)
+        frac = f32(1) - f32(min(max(count, 0), w)) / f32(w)
+        return float(f32(init - cfg.lr) * frac + f32(cfg.lr))
     steps = max(cfg.max_steps, 2)
     bounds = (0, int(max(0.01, 1.001 / steps) * steps), int(steps))
     values = np.cumprod([cfg.lr / 25.0, 25.0, 1.0 / (25.0 * 1e4)])
-    f32 = np.float32
     if count >= bounds[2]:
         return float(f32(values[2]))
     i = 0 if count < bounds[1] else 1
@@ -147,8 +152,9 @@ def create_train_state(encoder_cfg: EncoderConfig, train_cfg: TrainConfig, seed:
                        state_dict: Optional[Mapping[str, torch.Tensor]] = None,
                        lpips_state: Optional[Mapping[str, torch.Tensor]] = None) -> TrainState:
     """The encoder with `state_dict` or seeded random weights, the frozen
-    LPIPS network (when its weight is > 0) with `lpips_state` or seeded
-    random features, Adam and a step counter at 0, on `device`."""
+    LPIPS network (when its weight is > 0) with `lpips_state`, else the
+    file `train_cfg.loss.lpips_weights`, else seeded random features, Adam
+    and a step counter at 0, on `device`."""
     check_ported(train_cfg)
     dev = resolve_device(device)
     set_f32_policy()
@@ -156,10 +162,12 @@ def create_train_state(encoder_cfg: EncoderConfig, train_cfg: TrainConfig, seed:
     lpips = None
     if train_cfg.loss.lpips_weight > 0:
         lpips = LPIPS()
-        if lpips_state is None:
-            init_lpips(lpips, seed)
-        else:
+        if lpips_state is not None:
             lpips.load_state_dict(lpips_state)
+        elif train_cfg.loss.lpips_weights:
+            load_lpips_torch_weights(lpips, train_cfg.loss.lpips_weights)
+        else:
+            init_lpips(lpips, seed)
         lpips = lpips.requires_grad_(False).to(dev).eval()
     return TrainState(model=model, optimizer=make_optimizer(model.parameters(), train_cfg.optimizer),
                       encoder_cfg=encoder_cfg, train_cfg=train_cfg, lpips=lpips)

@@ -1,12 +1,15 @@
 """Image IO and layout helpers without imageio or matplotlib.
 
 Counterpart of splatter360_tpu/utils/image_io.py (`to_uint8`, `save_image`,
-`load_image`, `hcat`, `vcat`, `apply_depth_colormap`). PNG files are
-written and read with zlib and struct: 8-bit grey, grey+alpha, RGB, RGBA
-or palette images, not interlaced (the PNG files imageio and Pillow write
-by default). The depth colormap indexes matplotlib's 256-entry `inferno`
-table (utils/inferno.py) as matplotlib does. Videos (`save_video`) are not
-ported.
+`load_image`, `save_video`, `hcat`, `vcat`, `add_label`,
+`apply_depth_colormap`). PNG files are written and read with zlib and
+struct: 8-bit grey, grey+alpha, RGB, RGBA or palette images, not interlaced
+(the PNG files imageio and Pillow write by default). The depth colormap
+indexes matplotlib's 256-entry `inferno` table (utils/inferno.py) as
+matplotlib does. `add_label` draws its text with a 5x7 bitmap font of its
+own (upper case, digits and some punctuation; PIL is not needed), so its
+glyphs differ from PIL's while its banner and the image keep JAX's shapes
+and pixels.
 """
 
 from __future__ import annotations
@@ -23,6 +26,35 @@ _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # PNG colour type -> channels
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
 _INFERNO = np.asarray(INFERNO, np.float64)
+# 5x7 glyphs, one 5-bit row each (bit 4 the left column); lower case is drawn
+# in upper case, any other character as "?"
+_FONT = {
+    " ": (0, 0, 0, 0, 0, 0, 0),
+    "0": (14, 17, 19, 21, 25, 17, 14), "1": (4, 12, 4, 4, 4, 4, 14),
+    "2": (14, 17, 1, 2, 4, 8, 31), "3": (31, 2, 4, 2, 1, 17, 14),
+    "4": (2, 6, 10, 18, 31, 2, 2), "5": (31, 16, 30, 1, 1, 17, 14),
+    "6": (6, 8, 16, 30, 17, 17, 14), "7": (31, 1, 2, 4, 8, 8, 8),
+    "8": (14, 17, 17, 14, 17, 17, 14), "9": (14, 17, 17, 15, 1, 2, 12),
+    "A": (14, 17, 17, 17, 31, 17, 17), "B": (30, 17, 17, 30, 17, 17, 30),
+    "C": (14, 17, 16, 16, 16, 17, 14), "D": (28, 18, 17, 17, 17, 18, 28),
+    "E": (31, 16, 16, 30, 16, 16, 31), "F": (31, 16, 16, 30, 16, 16, 16),
+    "G": (14, 17, 16, 23, 17, 17, 15), "H": (17, 17, 17, 31, 17, 17, 17),
+    "I": (14, 4, 4, 4, 4, 4, 14), "J": (7, 2, 2, 2, 2, 18, 12),
+    "K": (17, 18, 20, 24, 20, 18, 17), "L": (16, 16, 16, 16, 16, 16, 31),
+    "M": (17, 27, 21, 21, 17, 17, 17), "N": (17, 17, 25, 21, 19, 17, 17),
+    "O": (14, 17, 17, 17, 17, 17, 14), "P": (30, 17, 17, 30, 16, 16, 16),
+    "Q": (14, 17, 17, 17, 21, 18, 13), "R": (30, 17, 17, 30, 20, 18, 17),
+    "S": (15, 16, 16, 14, 1, 1, 30), "T": (31, 4, 4, 4, 4, 4, 4),
+    "U": (17, 17, 17, 17, 17, 17, 14), "V": (17, 17, 17, 17, 17, 10, 4),
+    "W": (17, 17, 17, 21, 21, 21, 10), "X": (17, 17, 10, 4, 10, 17, 17),
+    "Y": (17, 17, 17, 10, 4, 4, 4), "Z": (31, 1, 2, 4, 8, 16, 31),
+    ".": (0, 0, 0, 0, 0, 12, 12), ",": (0, 0, 0, 0, 12, 4, 8),
+    ":": (0, 12, 12, 0, 12, 12, 0), "-": (0, 0, 0, 31, 0, 0, 0),
+    "_": (0, 0, 0, 0, 0, 0, 31), "/": (0, 1, 2, 4, 8, 16, 0),
+    "(": (2, 4, 8, 8, 8, 4, 2), ")": (8, 4, 2, 2, 2, 4, 8),
+    "=": (0, 0, 31, 0, 31, 0, 0), "+": (0, 4, 4, 31, 4, 4, 0),
+    "%": (24, 25, 2, 4, 8, 19, 3), "?": (14, 17, 1, 2, 4, 0, 4),
+}
 
 
 def to_uint8(img: np.ndarray) -> np.ndarray:
@@ -134,6 +166,33 @@ def load_image(path) -> np.ndarray:
     return decode_png(Path(path).read_bytes()).astype(np.float32) / 255.0
 
 
+def save_video(frames, path, fps: int = 30) -> None:
+    """frames: [H, W, 3] images in [0, 1] (or uint8). Written as an mp4v
+    video with cv2 where it imports and its writer works, else as PNG frames
+    in the directory `path` without its suffix."""
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    frames = [f if np.asarray(f).dtype == np.uint8 else to_uint8(f) for f in frames]
+    try:
+        import cv2
+
+        h, w = frames[0].shape[:2]
+        writer = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*"mp4v"), fps, (w, h))
+        if not writer.isOpened():
+            raise RuntimeError("cv2.VideoWriter failed to open")
+        for f in frames:
+            writer.write(cv2.cvtColor(f, cv2.COLOR_RGB2BGR))
+        writer.release()
+        if path.stat().st_size > 0:
+            return
+        raise RuntimeError("cv2 wrote an empty video")
+    except Exception:
+        frame_dir = path.with_suffix("")
+        frame_dir.mkdir(parents=True, exist_ok=True)
+        for i, f in enumerate(frames):
+            (frame_dir / f"{i:04d}.png").write_bytes(encode_png(f))
+
+
 def hcat(*images, pad: int = 0):
     """Concatenate [H, W, C] images horizontally, padding heights with 1."""
     images = [np.asarray(i) for i in images]
@@ -164,6 +223,29 @@ def vcat(*images, pad: int = 0):
     if pad:
         out = out[:-1]
     return np.concatenate(out, axis=0)
+
+
+def add_label(img, text: str, height: int = 18):
+    """A white banner `height` pixels tall above an [H, W, 3] image, with
+    `text` in black from (4, 2) at twice the font's size, clipped at the
+    right edge. Float images come back as float32 in [0, 1] (through
+    uint8, as JAX's), uint8 as uint8."""
+    arr = np.asarray(img)
+    was_float = arr.dtype != np.uint8
+    if was_float:
+        arr = to_uint8(arr)
+    banner = np.full((height, arr.shape[1], 3), 255, np.uint8)
+    x = 4
+    for ch in text.upper():
+        rows = _FONT.get(ch, _FONT["?"])
+        bits = np.array([[(r >> (4 - c)) & 1 for c in range(5)] for r in rows], bool)
+        glyph = np.kron(bits, np.ones((2, 2), bool))[:height - 2, :max(arr.shape[1] - x, 0)]
+        banner[2:2 + glyph.shape[0], x:x + glyph.shape[1]][glyph] = 0
+        x += 12
+    out = np.concatenate([banner, arr], axis=0)
+    if was_float:
+        out = out.astype(np.float32) / 255.0
+    return out
 
 
 def apply_depth_colormap(depth, near=None, far=None) -> np.ndarray:

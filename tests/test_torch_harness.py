@@ -108,12 +108,24 @@ def test_overrides_and_unknown_keys():
 
 @pytest.mark.parametrize("override, item", [
     ("train.render_backend=jax", "item 5"), ("test.save_video=true", "item 4"),
-    ("train.shard_render=true", "item 7"), ("train.optimizer.cosine_lr=false", "item 4"),
+    ("train.shard_render=true", "item 7"), ("checkpointing.pretrained_mono=x.pth", "item 4"),
     ("model.add_mono_feat=true", "item 6"), ("checkpointing.pretrained_backbone=x.pth", "item 4"),
-    ("train.loss.lpips_weights=w.pth", "item 4")])
+    ("train.shard_faces=true", "item 7")])
 def test_unported_values_raise_when_loaded(override, item):
     with pytest.raises(NotImplementedError, match=item):
         pconfig.load_config(str(REPO / "configs" / "hm3d.yaml"), [override])
+
+
+@pytest.mark.parametrize("override", ["train.optimizer.cosine_lr=false",
+                                      "train.loss.lpips_weights=w.pth",
+                                      "train.loss.depth_smoothness_weight=0.1"])
+def test_values_ported_for_training_load(override):
+    """The linear warm-up schedule, LPIPS weights and the depth smoothness
+    weight load as in the JAX package (tests/test_torch_trainer.py trains
+    with them against JAX)."""
+    ov = [override]
+    assert pconfig.config_to_dict(pconfig.load_config(str(REPO / "configs" / "hm3d.yaml"), ov)) \
+        == jconfig.config_to_dict(jconfig.load_config(str(REPO / "configs" / "hm3d.yaml"), ov))
 
 
 def test_hm3d_model_block_is_the_preset():
@@ -439,8 +451,8 @@ def test_cli_needs_the_card_unless_told(tmp_path, monkeypatch):
         pscene_io.write_synthetic_scene(tmp_path, "test", "x", n_frames=1)
     with pytest.raises(RuntimeError, match="CUDA"):
         make_lpips_fn()
-    with pytest.raises(NotImplementedError, match="next slice"):
-        main(["mode=train"], device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["mode=train"])
 
 
 def test_make_eval_step_is_compute_losses_without_gradients():

@@ -139,15 +139,20 @@ def test_serving_slice_vs_jax(monkeypatch):
 
 
 def test_import_leaves_jax_out():
-    """The port imports neither JAX/Flax nor the JAX package."""
+    """The port imports neither JAX/Flax nor the JAX package, and its
+    trainer needs no TensorBoard package (utils/tb_events.py writes the
+    events); every module is imported, the trainer's by name."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import splatter360_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, 'splatter360_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'splatter360_tpu'))\n"
+        "('jax', 'jaxlib', 'flax', 'splatter360_tpu', 'tensorboard', 'tensorboardX'))\n"
         "assert not bad, bad\n"
+        "new = ['train.trainer', 'utils.step_tracker', 'utils.tb_events', 'models.visualizer']\n"
+        "missing = [m for m in new if 'splatter360_tpu_torch.' + m not in sys.modules]\n"
+        "assert not missing, missing\n"
     )
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
 
