@@ -6,6 +6,7 @@ one to one; only the leaf and its layout change:
   Dense kernel [in, out]              -> weight [out, in]
   norm scale                          -> weight
   bias                                -> bias
+  depth_pe (the epipolar block's)     -> depth_pe, as it is
 and Flax's remat wrapper prefix (CheckpointResBlock_i) becomes ResBlock_i.
 """
 
@@ -46,7 +47,7 @@ def torch_state_from_flax(params: Mapping) -> dict[str, torch.Tensor]:
             leaf = "weight"
         elif leaf == "scale":
             leaf = "weight"
-        elif leaf != "bias":
+        elif leaf not in ("bias", "depth_pe"):
             raise ValueError(f"unexpected parameter {'/'.join(path)}")
         state[".".join(mods + [leaf])] = torch.from_numpy(np.ascontiguousarray(arr, np.float32))
     return state

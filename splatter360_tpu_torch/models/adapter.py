@@ -41,8 +41,9 @@ def sh_band_mask(sh_degree: int, device=None) -> torch.Tensor:
 
 def adapt_gaussians(cfg: GaussianAdapterConfig, extrinsics, depths, opacities,
                     raw_gaussians, image_shape) -> Gaussians:
-    """extrinsics [B, V, 4, 4] c2w, depths/opacities [B, V, H*W, 1],
-    raw_gaussians [B, V, H*W, 7 + 3 d_sh] -> Gaussians with N = V*H*W."""
+    """extrinsics [B, V, 4, 4] c2w, depths/opacities [B, V, n, 1],
+    raw_gaussians [B, V, n, 7 + 3 d_sh] with n = H*W*gpp -> Gaussians with
+    N = V*n."""
     b, v, n, _ = raw_gaussians.shape
     h, w = image_shape
     d_sh = cfg.d_sh
@@ -60,9 +61,11 @@ def adapt_gaussians(cfg: GaussianAdapterConfig, extrinsics, depths, opacities,
     c2w_rot = extrinsics[..., :3, :3]
     covs = build_covariance_sym6(scales, quats, world_rot=c2w_rot[:, :, None])
 
-    if n != h * w:
-        raise NotImplementedError("gaussians_per_pixel > 1 is not ported")
+    # n = h*w*gpp with gaussians_per_pixel > 1 (gpp fastest): a pixel's
+    # Gaussians share its ray
     dirs = erp_ray_directions(h, w, depths.device).reshape(h * w, 3)
+    if n != h * w:
+        dirs = dirs.repeat_interleave(n // (h * w), dim=0)
     pts_cam = dirs * depths
     means = torch.einsum("bvij,bvnj->bvni", c2w_rot, pts_cam) + extrinsics[..., None, :3, 3]
     sh_world = rotate_sh(sh, c2w_rot[:, :, None], cfg.sh_degree)

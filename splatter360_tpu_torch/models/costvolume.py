@@ -77,6 +77,14 @@ def build_cost_volume(features: torch.Tensor, extrinsics: torch.Tensor,
 
 
 class DepthPredictor360(nn.Module):
+    """The cost volume, its refinement, the depth expectation and the
+    full-resolution heads, with the ablations wo_cost_volume (the features
+    alone), wo_cost_volume_refine (one 3x3 conv, `corr_project`, for the
+    U-Net), wo_depth_refine (one 3x3 conv, `refine_conv`, for the refine
+    U-Net, and the coarse depth for every Gaussian of a pixel). Unnamed
+    submodules are numbered per type in call order, as Flax numbers them, so
+    an ablation shifts the numbers of the convs after it."""
+
     def __init__(self, feature_channels: int = 128, upscale_factor: int = 8,
                  num_depth_candidates: int = 128, costvolume_unet_feat_dim: int = 128,
                  costvolume_unet_channel_mult: Sequence[int] = (1, 1, 1),
@@ -84,35 +92,60 @@ class DepthPredictor360(nn.Module):
                  gaussian_raw_channels: int = 84, gaussians_per_pixel: int = 1,
                  depth_unet_feat_dim: int = 32, depth_unet_attn_res: Sequence[int] = (16,),
                  depth_unet_channel_mult: Sequence[int] = (1, 1, 1, 1, 1),
-                 depth_sampling_type: str = "log_depth",
+                 depth_sampling_type: str = "log_depth", wo_depth_refine: bool = False,
+                 wo_cost_volume: bool = False, wo_cost_volume_refine: bool = False,
                  use_cross_view_self_attn: bool = True):
         super().__init__()
         c, d = feature_channels, num_depth_candidates
         ch, du, raw = costvolume_unet_feat_dim, depth_unet_feat_dim, gaussian_raw_channels
+        gpp = gaussians_per_pixel
         self.upscale_factor = upscale_factor
         self.num_depth_candidates = d
         self.depth_sampling_type = depth_sampling_type
-        self.gaussians_per_pixel = gaussians_per_pixel
-        self.Conv_0 = Conv(d + c, ch, 3)
-        self.GroupNorm_0 = GroupNorm(8, ch)
-        self.corr_refine_unet = UNet2D(
-            ch, ch, ch, 1, tuple(costvolume_unet_attn_res),
-            tuple(costvolume_unet_channel_mult), cross_view_attn=use_cross_view_self_attn)
-        self.Conv_1 = Conv(ch, d, 3)
-        self.regressor_residual = Conv(d + c, d, 1)
-        self.Conv_2 = Conv(d, 2 * d, 3)
-        self.Conv_3 = Conv(2 * d, d, 3)
+        self.gaussians_per_pixel = gpp
+        self.wo_depth_refine, self.wo_cost_volume = wo_depth_refine, wo_cost_volume
+        self.wo_cost_volume_refine = wo_cost_volume_refine
+        counts: dict[str, int] = {}
+
+        def auto(kind: str, module: nn.Module) -> str:
+            name = f"{kind}_{counts.get(kind, 0)}"
+            counts[kind] = counts.get(kind, 0) + 1
+            self.add_module(name, module)
+            return name
+
+        cin = c if wo_cost_volume else d + c
+        if wo_cost_volume_refine:
+            self.corr_project = Conv(cin, ch, 3)
+            corr_ch = ch
+        else:
+            self._corr_in = auto("Conv", Conv(cin, ch, 3))
+            self._corr_norm = auto("GroupNorm", GroupNorm(8, ch))
+            self.corr_refine_unet = UNet2D(
+                ch, ch, ch, 1, tuple(costvolume_unet_attn_res),
+                tuple(costvolume_unet_channel_mult), cross_view_attn=use_cross_view_self_attn)
+            self._corr_out = auto("Conv", Conv(ch, d, 3))
+            self.regressor_residual = Conv(cin, d, 1)
+            corr_ch = d
+        self._pdf_0 = auto("Conv", Conv(corr_ch, 2 * d, 3))
+        self._pdf_1 = auto("Conv", Conv(2 * d, d, 3))
         self.upsampler_conv = Conv(2 * c, c, 3)
         self.proj_feature = Conv(c, du, 3)
-        self.Conv_4 = Conv(3 + du + 2, du, 3)
-        self.GroupNorm_1 = GroupNorm(4, du)
-        self.refine_unet = UNet2D(
-            du, du, du, 1, tuple(depth_unet_attn_res), tuple(depth_unet_channel_mult),
-            cross_view_attn=use_cross_view_self_attn)
-        self.Conv_5 = Conv(du + 3 + c, 2 * raw, 3)
-        self.Conv_6 = Conv(2 * raw, raw, 3)
-        self.Conv_7 = Conv(du, 2 * du, 3)
-        self.Conv_8 = Conv(2 * du, 2 * gaussians_per_pixel, 3)
+        if wo_depth_refine:
+            self.refine_conv = Conv(3 + du + 2, du, 3)
+        else:
+            self._refine_in = auto("Conv", Conv(3 + du + 2, du, 3))
+            self._refine_norm = auto("GroupNorm", GroupNorm(4, du))
+            self.refine_unet = UNet2D(
+                du, du, du, 1, tuple(depth_unet_attn_res), tuple(depth_unet_channel_mult),
+                cross_view_attn=use_cross_view_self_attn)
+        self._gau_0 = auto("Conv", Conv(du + 3 + c, 2 * raw, 3))
+        self._gau_1 = auto("Conv", Conv(2 * raw, raw, 3))
+        if not wo_depth_refine:
+            self._depth_0 = auto("Conv", Conv(du, 2 * du, 3))
+            self._depth_1 = auto("Conv", Conv(2 * du, 2 * gpp, 3))
+
+    def _m(self, name: str) -> nn.Module:
+        return getattr(self, name)
 
     def forward(self, features, cnn_features, images, extrinsics, near, far):
         """features/cnn_features [B, V, h, w, C], images [B, V, H, W, 3],
@@ -123,13 +156,19 @@ class DepthPredictor360(nn.Module):
         d = self.num_depth_candidates
         cand = depth_candidates(near, far, d, self.depth_sampling_type)
 
-        corr = build_cost_volume(features, extrinsics, cand)
-        x = torch.cat([corr, features], dim=-1).reshape(b * v, h, w, d + c)
-        y = gelu(self.GroupNorm_0(self.Conv_0(x)))
-        y = self.corr_refine_unet(y, num_views=v)
-        raw_corr = self.Conv_1(y) + self.regressor_residual(x)
+        if self.wo_cost_volume:
+            x = features.reshape(b * v, h, w, c)
+        else:
+            corr = build_cost_volume(features, extrinsics, cand)
+            x = torch.cat([corr, features], dim=-1).reshape(b * v, h, w, d + c)
+        if self.wo_cost_volume_refine:
+            raw_corr = self.corr_project(x)
+        else:
+            y = gelu(self._m(self._corr_norm)(self._m(self._corr_in)(x)))
+            y = self.corr_refine_unet(y, num_views=v)
+            raw_corr = self._m(self._corr_out)(y) + self.regressor_residual(x)
 
-        y = self.Conv_3(gelu(self.Conv_2(raw_corr)))
+        y = self._m(self._pdf_1)(gelu(self._m(self._pdf_0)(raw_corr)))
         pdf = torch.softmax(y.float(), dim=-1)
         coarse_depth = (pdf * cand.reshape(b * v, 1, 1, d)).sum(-1, keepdim=True)
         coarse_disp = 1.0 / coarse_depth
@@ -146,15 +185,23 @@ class DepthPredictor360(nn.Module):
         dt = features.dtype
         refine_in = torch.cat([imgs, proj_feature, fullres_disp.to(dt), pdf_max_full.to(dt)],
                               dim=-1)
-        y = gelu(self.GroupNorm_1(self.Conv_4(refine_in)))
-        refine_out = self.refine_unet(y, num_views=v)
+        if self.wo_depth_refine:
+            refine_out = self.refine_conv(refine_in)
+        else:
+            y = gelu(self._m(self._refine_norm)(self._m(self._refine_in)(refine_in)))
+            refine_out = self.refine_unet(y, num_views=v)
 
         gau_in = torch.cat([refine_out, imgs, proj_in_fullres], dim=-1)
-        raw_gaussians = self.Conv_6(gelu(self.Conv_5(gau_in)))
+        raw_gaussians = self._m(self._gau_1)(gelu(self._m(self._gau_0)(gau_in)))
         raw_gaussians = raw_gaussians.reshape(b, v, hh * ww, -1).float()
 
         gpp = self.gaussians_per_pixel
-        y = self.Conv_8(gelu(self.Conv_7(refine_out)))
+        if self.wo_depth_refine:
+            # the one coarse surface for each of a pixel's gpp Gaussians
+            densities = pdf_max_full.reshape(b, v, hh * ww, 1).expand(b, v, hh * ww, gpp)
+            depths = (1.0 / fullres_disp).reshape(b, v, hh * ww, 1).expand(b, v, hh * ww, gpp)
+            return depths, densities, raw_gaussians
+        y = self._m(self._depth_1)(gelu(self._m(self._depth_0)(refine_out)))
         delta_disp, raw_density = y.chunk(2, dim=-1)
         densities = torch.sigmoid(raw_density.float()).reshape(b, v, hh * ww, gpp)
         lo = (1.0 / far).reshape(b * v, 1, 1, 1)

@@ -35,13 +35,16 @@ def render_erp_views(
     image_shape: tuple[int, int],
     background: Optional[torch.Tensor] = None,
     render_depth: bool = False,
+    backend: str = "pallas",
+    max_per_tile: int = 2048,
 ) -> DecoderOutput:
-    """Metric depth only: the serving path renders no other depth mode."""
+    """Metric depth only: the serving path renders no other depth mode.
+    `backend` and `max_per_tile` as in ops/rasterizer.render_batch."""
     outs = [
         render_batch(gaussians.means[i], gaussians.covariances[i],
                      gaussians.harmonics[i], gaussians.opacities[i],
                      extrinsics[i], image_shape, near[i], far[i],
-                     background=background)
+                     background=background, backend=backend, max_per_tile=max_per_tile)
         for i in range(extrinsics.shape[0])
     ]
     return DecoderOutput(
@@ -76,6 +79,8 @@ def render_cube_views(
     render_depth: bool = False,
     depth_mode: str = "depth",
     remat_faces: bool = False,
+    backend: str = "pallas",
+    max_per_tile: int = 2048,
 ) -> DecoderOutput:
     """The 6 cube faces (F R B L U D) of every target view: colour
     [B, V, 6, fh, fw, 3], depth and alpha [B, V, 6, fh, fw], dropped
@@ -89,7 +94,8 @@ def render_cube_views(
     def faces(means, covs, sh, op, c2w, nr, fr):
         c2w, nr, fr, kw = cube_face_batch(c2w, nr, fr, n)
         out = render_batch(means, covs, sh, op, c2w, face_shape, nr, fr, background=background,
-                           depth_mode=depth_mode, **kw)
+                           depth_mode=depth_mode, backend=backend, max_per_tile=max_per_tile,
+                           **kw)
         return out.color, out.depth, out.alpha, out.dropped
 
     outs = []

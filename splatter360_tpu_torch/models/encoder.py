@@ -1,11 +1,15 @@
 """EncoderCostVolume360: posed ERP panoramas -> pixel-aligned 3D Gaussians.
 
-Counterpart of splatter360_tpu/models/encoder.py, stages (2)-(6): cube
-branch backbone -> cube_to_erp, ERP branch backbone, CEE fusion, depth
-predictor, Gaussian adapter. `apply_encoder` runs it under the config's
-precision policy: float32, or with `bf16_compute` the JAX package's bf16
-policy. Options off the HM3D path raise NotImplementedError (see
-ROADMAP.md).
+Counterpart of splatter360_tpu/models/encoder.py, stages (2)-(6): (2) the
+cube branch backbone -> cube_to_erp; (3) the ERP branch backbone; (4) the
+branches' fusion (fusion_type cee, concat or biproj), then optionally the
+spherical epipolar cross-attention (use_epipolar_trans); (5) the depth
+predictor; (6) the Gaussian adapter, gaussians_per_pixel Gaussians a pixel.
+The wo_* flags are the reference's Table 3 ablations; without a branch
+(wo_cube_encoder, wo_erp_encoder) its backbone is not built and zeros take
+its features' place. `apply_encoder` runs it under the config's precision
+policy: float32, or with `bf16_compute` the JAX package's bf16 policy. The
+mono branch (add_mono_feat) raises NotImplementedError (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -20,7 +24,8 @@ from ..geometry.cubemap import cube_to_erp
 from .adapter import GaussianAdapterConfig, adapt_gaussians, map_pdf_to_opacity
 from .backbone import BackboneMultiview
 from .costvolume import DepthPredictor360
-from .layers import CEELayer
+from .epipolar import EpipolarCrossAttention
+from .layers import FUSION_LAYERS
 from .types import Gaussians
 
 
@@ -86,23 +91,17 @@ HM3D = EncoderConfig(
 # the bf16 policy was ported
 HM3D_F32 = replace(HM3D, bf16_compute=False)
 
-_UNPORTED_FLAGS = ("add_mono_feat", "use_epipolar_trans", "wo_depth_refine", "wo_cost_volume",
-                   "wo_backbone_cross_attn", "wo_cost_volume_refine", "wo_cube_encoder",
-                   "wo_erp_encoder")
-
-
 def check_ported(cfg: EncoderConfig) -> None:
-    """Raise NotImplementedError for an option off the ported path."""
-    for flag in _UNPORTED_FLAGS:
-        if getattr(cfg, flag):
-            raise NotImplementedError(
-                f"model.{flag}=True is not ported (ROADMAP.md Queue 1 item 6)")
-    if cfg.fusion_type != "cee":
+    """Raise NotImplementedError for add_mono_feat (not ported yet) and for
+    num_surfaces > 1 (the JAX encoder raises too: the depth predictor emits
+    one surface)."""
+    if cfg.add_mono_feat:
         raise NotImplementedError(
-            f"model.fusion_type={cfg.fusion_type!r} is not ported (ROADMAP.md Queue 1 item 6)")
-    if cfg.gaussians_per_pixel != 1 or cfg.num_surfaces != 1:
-        raise NotImplementedError("model.gaussians_per_pixel/num_surfaces > 1 is not ported "
-                                  "(ROADMAP.md Queue 1 item 6)")
+            "model.add_mono_feat=True is not ported (ROADMAP.md Queue 1 item 6)")
+    if cfg.num_surfaces != 1:
+        raise NotImplementedError(
+            "model.num_surfaces > 1: the depth predictor emits one surface (the JAX encoder "
+            "raises too)")
 
 
 class EncoderCostVolume360(nn.Module):
@@ -111,10 +110,18 @@ class EncoderCostVolume360(nn.Module):
         check_ported(cfg)
         self.cfg = cfg
         c, ds = cfg.d_feature, cfg.downscale_factor
-        self.backbone_cube = BackboneMultiview(feature_channels=c, downscale_factor=ds)
-        self.backbone_erp = BackboneMultiview(feature_channels=c, downscale_factor=ds)
-        self.fuse1 = CEELayer(c)
-        self.fuse2 = CEELayer(c)
+        if not cfg.wo_cube_encoder:
+            self.backbone_cube = BackboneMultiview(feature_channels=c, downscale_factor=ds,
+                                                   no_cross_attn=cfg.wo_backbone_cross_attn)
+        if not cfg.wo_erp_encoder:
+            self.backbone_erp = BackboneMultiview(feature_channels=c, downscale_factor=ds,
+                                                  no_cross_attn=cfg.wo_backbone_cross_attn)
+        fusion = FUSION_LAYERS[cfg.fusion_type]
+        self.fuse1 = fusion(c)
+        self.fuse2 = fusion(c)
+        if cfg.use_epipolar_trans:
+            self.epipolar_trans = EpipolarCrossAttention(
+                c, c, cfg.epipolar_num_samples, cfg.depth_sampling_type)
         ad = cfg.gaussian_adapter
         self.depth_predictor = DepthPredictor360(
             feature_channels=c, upscale_factor=ds,
@@ -128,6 +135,8 @@ class EncoderCostVolume360(nn.Module):
             depth_unet_attn_res=tuple(cfg.depth_unet_attn_res),
             depth_unet_channel_mult=tuple(cfg.depth_unet_channel_mult),
             depth_sampling_type=cfg.depth_sampling_type,
+            wo_depth_refine=cfg.wo_depth_refine, wo_cost_volume=cfg.wo_cost_volume,
+            wo_cost_volume_refine=cfg.wo_cost_volume_refine,
             use_cross_view_self_attn=cfg.use_cross_view_self_attn,
         )
 
@@ -135,7 +144,8 @@ class EncoderCostVolume360(nn.Module):
                 global_step: int = 0) -> tuple[Gaussians, torch.Tensor]:
         """image_sphere [B, V, H, W, 3], image_cubes [B, V, 6, Hc, Wc, 3]
         (F R B L U D), extrinsics [B, V, 4, 4] c2w, near/far [B, V] ->
-        (Gaussians with N = V*H*W, predicted ERP depth [B, V, H, W])."""
+        (Gaussians with N = V*H*W*gaussians_per_pixel, predicted ERP depth
+        [B, V, H, W])."""
         cfg = self.cfg
         b, v, h, w, _ = image_sphere.shape
         cubes = image_cubes.shape[2]
@@ -143,28 +153,45 @@ class EncoderCostVolume360(nn.Module):
         fh, fw = h // ds, w // ds
         splits = cfg.multiview_trans_attn_split
 
-        cube_imgs = image_cubes.reshape(b, v * cubes, *image_cubes.shape[3:])
-        trans_c, cnn_c = self.backbone_cube(cube_imgs, attn_splits=splits)
-        fhc = trans_c.shape[2]
+        if cfg.wo_cube_encoder:
+            trans_features = cnn_features = image_sphere.new_zeros((b * v, fh, fw, c))
+        else:
+            cube_imgs = image_cubes.reshape(b, v * cubes, *image_cubes.shape[3:])
+            trans_c, cnn_c = self.backbone_cube(cube_imgs, attn_splits=splits)
+            fhc = trans_c.shape[2]
 
-        def c2e_all(x):
-            x = x.reshape(b * v, cubes, fhc, fhc, c)
-            return torch.stack([cube_to_erp(x[i], fh, fw) for i in range(b * v)])
+            def c2e_all(x):
+                x = x.reshape(b * v, cubes, fhc, fhc, c)
+                return torch.stack([cube_to_erp(x[i], fh, fw) for i in range(b * v)])
 
-        trans_features, cnn_features = c2e_all(trans_c), c2e_all(cnn_c)
-        trans_e, cnn_e = self.backbone_erp(image_sphere, attn_splits=splits)
-        trans_fused = self.fuse1(trans_e.reshape(b * v, fh, fw, c), trans_features)
-        cnn_fused = self.fuse2(cnn_e.reshape(b * v, fh, fw, c), cnn_features)
+            trans_features, cnn_features = c2e_all(trans_c), c2e_all(cnn_c)
+        if cfg.wo_erp_encoder:
+            trans_erp = cnn_erp = image_sphere.new_zeros((b * v, fh, fw, c))
+        else:
+            trans_e, cnn_e = self.backbone_erp(image_sphere, attn_splits=splits)
+            trans_erp, cnn_erp = (x.reshape(b * v, fh, fw, c) for x in (trans_e, cnn_e))
+        trans_fused = self.fuse1(trans_erp, trans_features).reshape(b, v, fh, fw, c)
+        cnn_fused = self.fuse2(cnn_erp, cnn_features).reshape(b, v, fh, fw, c)
+        if cfg.use_epipolar_trans:
+            trans_fused = self.epipolar_trans(trans_fused, extrinsics_sphere, near, far)
 
         depths, densities, raw_gaussians = self.depth_predictor(
-            trans_fused.reshape(b, v, fh, fw, c), cnn_fused.reshape(b, v, fh, fw, c),
-            image_sphere, extrinsics_sphere, near, far)
+            trans_fused, cnn_fused, image_sphere, extrinsics_sphere, near, far)
         om = cfg.opacity_mapping
+        gpp = cfg.gaussians_per_pixel
         opacities = map_pdf_to_opacity(densities, global_step, om.initial, om.final,
-                                       om.warm_up) / cfg.gaussians_per_pixel
+                                       om.warm_up) / gpp
         depth_map = depths[..., 0].reshape(b, v, h, w)
+        raw = raw_gaussians[..., 2:]
+        if gpp > 1:
+            # a pixel's gpp Gaussians share raw scale, rotation and SH and
+            # differ in depth and opacity; flattened with gpp fastest
+            n_pix = depths.shape[2]
+            depths = depths.reshape(b, v, n_pix * gpp, 1)
+            opacities = opacities.reshape(b, v, n_pix * gpp, 1)
+            raw = raw.repeat_interleave(gpp, dim=2)
         gaussians = adapt_gaussians(cfg.gaussian_adapter, extrinsics_sphere, depths,
-                                    opacities, raw_gaussians[..., 2:], (h, w))
+                                    opacities, raw, (h, w))
         return gaussians, depth_map
 
 

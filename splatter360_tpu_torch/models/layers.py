@@ -202,6 +202,47 @@ class CEELayer(nn.Module):
         return F.relu(self.Conv_2(self.SELayer_0(x)))
 
 
+class ConcatFusion(nn.Module):
+    """`concat` fusion: a 1x1 conv (no bias) and relu over both branches."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.Conv_0 = Conv(2 * channels, channels, 1, bias=False)
+
+    def forward(self, equi_feat, c2e_feat):
+        return F.relu(self.Conv_0(torch.cat([equi_feat, c2e_feat], dim=-1)))
+
+
+class BiProjFusion(nn.Module):
+    """BiFuse's `biproj` gated residual: each branch a 3x3 conv and relu, a
+    sigmoid mask from both gates the cube branch, added to the ERP branch."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        c = channels
+        self.conv_e2c = Conv(c, c, 3)
+        self.conv_c2e = Conv(c, c, 3)
+        self.conv_mask = Conv(2 * c, 1, 1)
+
+    def forward(self, equi_feat, c2e_feat):
+        e = F.relu(self.conv_e2c(equi_feat))
+        c = F.relu(self.conv_c2e(c2e_feat))
+        return equi_feat + c * sigmoid(self.conv_mask(torch.cat([e, c], dim=-1)))
+
+
+# fusion_type -> the fusion block (an unknown type is a KeyError, as in JAX)
+FUSION_LAYERS = {"cee": CEELayer, "concat": ConcatFusion, "biproj": BiProjFusion}
+
+
+def softmax(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """jax.nn.softmax in x's dtype: outside float32 each op rounds to it,
+    the sum is taken in float32 (jnp.sum's upcast) and rounded."""
+    if x.dtype == torch.float32:
+        return torch.softmax(x, dim=dim)
+    u = torch.exp(x - x.amax(dim=dim, keepdim=True))
+    return u / u.float().sum(dim=dim, keepdim=True).to(x.dtype)
+
+
 def bilinear_resize(x: torch.Tensor, new_h: int, new_w: int) -> torch.Tensor:
     """Bilinear resize of [B, H, W, C] with half-pixel centres.
 

@@ -2,8 +2,9 @@
 
 Counterpart of splatter360_tpu/models/transformer.py: per layer a windowed
 self-attention and a cross-view attention whose keys/values are the other
-views' tokens at the same window position; every second layer shifts the
-windows by half a window with the precomputed Swin mask.
+views' tokens at the same window position (or, with no_cross_attn, the
+self-attention alone with the FFN); every second layer shifts the windows by
+half a window with the precomputed Swin mask.
 """
 
 from __future__ import annotations
@@ -84,12 +85,15 @@ class MultiViewFeatureTransformer(nn.Module):
     def __init__(self, num_layers: int = 6, d_model: int = 128,
                  ffn_dim_expansion: int = 4, no_cross_attn: bool = False):
         super().__init__()
-        if no_cross_attn:
-            raise NotImplementedError("wo_backbone_cross_attn is not ported")
-        self.num_layers = num_layers
+        self.num_layers, self.no_cross_attn = num_layers, no_cross_attn
         for i in range(num_layers):
-            self.add_module(f"layer{i}_self", TransformerLayer(d_model, True, ffn_dim_expansion))
-            self.add_module(f"layer{i}_cross", TransformerLayer(d_model, False, ffn_dim_expansion))
+            # without cross-view attention (wo_backbone_cross_attn) the self
+            # layer carries the FFN
+            self.add_module(f"layer{i}_self",
+                            TransformerLayer(d_model, not no_cross_attn, ffn_dim_expansion))
+            if not no_cross_attn:
+                self.add_module(f"layer{i}_cross",
+                                TransformerLayer(d_model, False, ffn_dim_expansion))
 
     def forward(self, features: torch.Tensor, attn_splits: int = 2) -> torch.Tensor:
         """features [B, V, H, W, C] -> same shape."""
@@ -118,5 +122,6 @@ class MultiViewFeatureTransformer(nn.Module):
         for i in range(self.num_layers):
             shift = i % 2 == 1
             x = windowed(getattr(self, f"layer{i}_self"), x, False, shift)
-            x = windowed(getattr(self, f"layer{i}_cross"), x, True, shift)
+            if not self.no_cross_attn:
+                x = windowed(getattr(self, f"layer{i}_cross"), x, True, shift)
         return x

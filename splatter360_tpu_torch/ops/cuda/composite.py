@@ -431,7 +431,7 @@ def scatter_out_blocks(dout, gidx, starts, counts, nproc, n: int) -> torch.Tenso
     views = torch.arange(v, device=dout.device)[:, None]
     gsel = gidx.reshape(v, nblk, CHUNK)[views, inblk.clamp(0, nblk - 1)]  # [V, O, 128]
     flat = (views[..., None] * n + gsel).reshape(-1)
-    g_flat = torch.zeros(v * n, ROWS, dtype=torch.float32, device=dout.device)
+    g_flat = torch.zeros(v * n, ROWS, dtype=dout.dtype, device=dout.device)
     g_flat[:, :N_GRAD].index_add_(0, flat, rows.transpose(2, 3).reshape(-1, N_GRAD))
     return g_flat.reshape(v, n, ROWS)
 
@@ -645,10 +645,12 @@ def composite_backward_plain(attrs, gidx, starts, counts, g_planes, lt_final, np
     kernel takes it), not autograd of the forward. `stats`, if given,
     receives "blocks_walked", "blocks_gated", "pairs_walked" (gate-passing
     pairs of walked blocks), "pairs_gated" (those of gated blocks) and
-    "rows_written" ((instance, tile) pairs of gated blocks)."""
+    "rows_written" ((instance, tile) pairs of gated blocks). It runs in
+    the dtype of its inputs: float32 as the kernel, or float64 for the
+    function free of float32 rounding."""
     v, n, _ = attrs.shape
     walk = _Walk(_gathered(attrs, gidx), gidx.shape[1], starts, counts, nty, ntx, w_img, wrap_x)
-    g_flat = torch.zeros(v * n, ROWS, dtype=torch.float32, device=attrs.device)
+    g_flat = torch.zeros(v * n, ROWS, dtype=attrs.dtype, device=attrs.device)
 
     def add(sel, j, g, grad):
         view = walk.view_of[sel][:, None]
@@ -671,7 +673,7 @@ def composite_backward_unfused_plain(inst, starts, counts, g_planes, lt_final, n
     v, nblk = inst.shape[:2]
     walk = _Walk(_packed(inst), nblk * CHUNK, starts, counts, nty, ntx, w_img, wrap_x)
     obase = out_block_layout(starts, counts).reshape(walk.vt).long()
-    dout = torch.full((v, nblk + walk.t, ROWS, CHUNK), float("nan"), dtype=torch.float32,
+    dout = torch.full((v, nblk + walk.t, ROWS, CHUNK), float("nan"), dtype=inst.dtype,
                       device=inst.device)
 
     def zero(live, j):
@@ -705,7 +707,7 @@ def _backward_walk(walk: _Walk, g_planes, lt_final, nproc, on_walked, on_gated,
     lt = lt_final.reshape(vt, N_PIX)
     gt_term = planes[:, 4] * torch.exp(lt)
     suffix, a_psi, own_lg, own_psi, start_lg, start_psi = (
-        torch.zeros(vt, N_PIX, dtype=torch.float32, device=dev) for _ in range(6))
+        torch.zeros(vt, N_PIX, dtype=g_planes.dtype, device=dev) for _ in range(6))
     st = {"blocks_walked": 0, "blocks_gated": 0, "pairs_walked": 0, "pairs_gated": 0,
           "rows_written": 0}
     for rj in range(int(nproc_f.max().item()) if vt else 0):
@@ -725,7 +727,7 @@ def _backward_walk(walk: _Walk, g_planes, lt_final, nproc, on_walked, on_gated,
             st["pairs_walked"] += int(gate.sum())
             lg = torch.log1p(-alpha)
             lg_lanes = lg.permute(2, 0, 1).contiguous()  # each lane a contiguous slice
-            sum_lg = torch.zeros(live.numel(), N_PIX, dtype=torch.float32, device=dev)
+            sum_lg = torch.zeros(live.numel(), N_PIX, dtype=lg.dtype, device=dev)
             for lane in range(CHUNK):
                 sum_lg = sum_lg + lg_lanes[lane]
             del lg_lanes
@@ -771,7 +773,7 @@ def _backward_walk(walk: _Walk, g_planes, lt_final, nproc, on_walked, on_gated,
             terms = torch.stack([g_p, g_p * bx, g_p * by, g_p * bx * bx, g_p * by * by,
                                  g_p * bx * by, w * gc[:, 0], w * gc[:, 1], w * gc[:, 2],
                                  w * gc[:, 3]], dim=1)
-            m = torch.zeros(sel.numel() * CHUNK, N_GRAD, dtype=torch.float32, device=dev)
+            m = torch.zeros(sel.numel() * CHUNK, N_GRAD, dtype=terms.dtype, device=dev)
             m.index_add_(0, nz[0] * CHUNK + nz[2], terms)
             m = m.reshape(sel.numel(), CHUNK, N_GRAD).unbind(-1)
             del t_i, one_m, contrib, gamma, zero, w, psi, psi_suffix, strict, later, g_alpha, g_p

@@ -1,8 +1,14 @@
 """Tiled Gaussian rasterizer for ERP and pinhole views.
 
-Counterpart of splatter360_tpu/ops/rasterizer.py `render_tiled` with the
-Pallas compositor: project -> SH colours -> tile binning -> one compositor
-launch for all views.
+Counterpart of splatter360_tpu/ops/rasterizer.py `render_tiled`: project
+-> SH colours -> tile binning -> one compositor call for all views. The
+`backend` is the JAX package's: "pallas" composites with the CUDA kernels
+(ops/cuda/composite.py), "jax" with the scan compositor
+(ops/composite_scan.py, composite_jax's counterpart). As in the JAX
+package, an ERP render narrower than 2 tiles goes to the scan compositor
+under "pallas" too: the kernels re-centre u per tile, which cannot serve
+both sides of the seam inside one tile. That switch is decided by the
+shape alone.
 """
 
 from __future__ import annotations
@@ -12,11 +18,13 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from .composite_scan import composite_tiles_scan
 from .cuda.composite import build_attrs, composite_tiles
 from .projection import project_erp, project_pinhole, sh_colors
 from .tiling import assign_tiles
 
 DEPTH_MODES = ("depth", "log", "disparity", "relative_disparity")
+BACKENDS = ("pallas", "jax")
 
 
 class RenderOutput(NamedTuple):
@@ -123,17 +131,28 @@ def render_batch(
     background: Optional[torch.Tensor] = None, sh_degree: Optional[int] = None,
     depth_mode: str = "depth", camera_kind: str = "erp", intrinsics=None,
     instance_cap: Optional[int] = None, views_per_position: int = 1,
+    backend: str = "pallas", max_per_tile: int = 512,
 ) -> RenderOutput:
     """Render V views of one Gaussian set (batch_inputs' arguments) with a
-    single compositor launch. Returns batched outputs (color [V, H, W, 3],
-    depth/alpha [V, H, W], dropped [V])."""
+    single compositor call: the CUDA kernels' launch with backend "pallas",
+    the scan compositor (each tile's first `max_per_tile` instances) with
+    "jax" or for an ERP view narrower than 2 tiles. Returns batched outputs
+    (color [V, H, W, 3], depth/alpha [V, H, W], dropped [V])."""
+    if backend not in BACKENDS:
+        raise ValueError(f"backend={backend!r}: expected one of {BACKENDS}")
     attrs, assignments, wrap_x = batch_inputs(
         means, covariances, harmonics, opacities, c2w, image_shape, near, far, sh_degree,
         depth_mode, camera_kind, intrinsics, instance_cap, views_per_position)
     if background is None:
         background = torch.zeros(3, dtype=means.dtype, device=means.device)
-    rgb, alpha, dacc = composite_tiles(assignments, attrs, image_shape, background,
-                                       wrap_x=wrap_x)
+    if backend == "pallas" and wrap_x and assignments[0].num_tiles_x < 2:
+        backend = "jax"
+    if backend == "jax":
+        rgb, alpha, dacc = composite_tiles_scan(assignments, attrs, image_shape, background,
+                                                wrap_x, max_per_tile)
+    else:
+        rgb, alpha, dacc = composite_tiles(assignments, attrs, image_shape, background,
+                                           wrap_x=wrap_x)
     return RenderOutput(color=rgb, depth=dacc, alpha=alpha,
                         dropped=torch.stack([a.dropped for a in assignments]))
 
@@ -143,12 +162,13 @@ def render_tiled(
     camera_kind: str = "erp", intrinsics=None, near=0.1, far=100.0, background=None,
     sh_degree: Optional[int] = None, render_depth: bool = False,
     depth_mode: str = "depth", instance_cap: Optional[int] = None,
+    backend: str = "pallas", max_per_tile: int = 512,
 ) -> RenderOutput:
     """Render one view ([H, W, 3] colour); the counterpart of the JAX
-    render_tiled with the Pallas compositor (camera_kind "erp" or
-    "pinhole")."""
+    render_tiled (camera_kind "erp" or "pinhole", backend "pallas" or
+    "jax")."""
     out = render_batch(means, covariances, harmonics, opacities, c2w[None], image_shape,
                        near, far, background, sh_degree, depth_mode, camera_kind, intrinsics,
-                       instance_cap)
+                       instance_cap, backend=backend, max_per_tile=max_per_tile)
     return RenderOutput(color=out.color[0], depth=out.depth[0] if render_depth else None,
                         alpha=out.alpha[0], dropped=out.dropped[0])

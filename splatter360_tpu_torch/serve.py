@@ -79,7 +79,8 @@ def _on(dev, *xs):
 def encode(model: EncoderCostVolume360, image_sphere, extrinsics, near, far,
            device: str | torch.device = "cuda") -> tuple[Gaussians, torch.Tensor]:
     """Context panoramas [B, V, H, W, 3] in [0, 1], c2w [B, V, 4, 4] and
-    near/far [B, V] -> (Gaussians with N = V*H*W, depth map [B, V, H, W])."""
+    near/far [B, V] -> (Gaussians with N = V*H*W*gaussians_per_pixel, depth map
+    [B, V, H, W])."""
     dev = resolve_device(device)
     set_f32_policy()
     image_sphere, extrinsics, near, far = _on(dev, image_sphere, extrinsics, near, far)

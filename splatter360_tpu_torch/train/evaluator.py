@@ -74,7 +74,8 @@ class Evaluator:
             v_t = tgt["image_sphere"].shape[1]
             with self.benchmarker.time("decoder", num_calls=v_t):
                 out = decoder.render_erp_views(gaussians, tgt["extrinsics_sphere"], tgt["near"],
-                                               tgt["far"], shape, render_depth=cfg.test.eval_depth)
+                                               tgt["far"], shape, render_depth=cfg.test.eval_depth,
+                                               backend=cfg.train.render_backend)
             n_drop = int(out.dropped.sum())
             if n_drop > 0:
                 print(f"warning: {scene}: {n_drop} splats dropped by emission-cap overflow — "
@@ -84,7 +85,8 @@ class Evaluator:
             if cfg.test.eval_on_cubes:
                 faces = decoder.render_cube_views(gaussians, tgt["extrinsics_sphere"], tgt["near"],
                                                   tgt["far"], (f, f),
-                                                  render_depth=cfg.test.eval_depth)
+                                                  render_depth=cfg.test.eval_depth,
+                                                  backend=cfg.train.render_backend)
                 pred = faces.color[0].reshape(-1, f, f, 3)
                 gt = context_cubes(tgt["image_sphere"], f)[0].reshape(-1, f, f, 3)
             else:

@@ -36,6 +36,7 @@ import torch
 from ..device import resolve_device, set_f32_policy
 from ..models import decoder
 from ..models.encoder import EncoderConfig, EncoderCostVolume360, apply_encoder
+from ..ops.rasterizer import BACKENDS
 from ..serve import build_model, context_cubes
 from .losses import LossConfig, mse_loss, sin_weighted_depth_l1, sin_weighted_mse
 from .lpips import LPIPS, init_lpips, load_lpips_torch_weights
@@ -57,8 +58,8 @@ class TrainConfig:
     loss: LossConfig = dataclasses.field(default_factory=LossConfig)
     supervision: str = "cubes"  # "cubes" | "erp"
     cube_face_size: Optional[int] = None  # default: H // 2
-    # "pallas": the tile compositor, whose CUDA kernels are the Pallas
-    # kernels' counterparts; "jax" (composite_jax) is not ported
+    # "pallas": the CUDA kernels, the Pallas kernels' counterparts; "jax":
+    # the scan compositor, composite_jax's (ops/composite_scan.py)
     render_backend: str = "pallas"
     max_per_tile: int = 2048  # the "jax" backend's segment cap
     wo_depth_supervise: bool = False
@@ -76,13 +77,13 @@ class TrainConfig:
 
 def check_ported(train_cfg: TrainConfig) -> None:
     """Raise for a value off the ported path (NotImplementedError, naming
-    its ROADMAP.md item) or an unknown supervision (ValueError)."""
+    its ROADMAP.md item) or an unknown supervision or render backend
+    (ValueError)."""
     if train_cfg.supervision not in ("cubes", "erp"):
         raise ValueError(f"supervision={train_cfg.supervision!r}: expected 'cubes' or 'erp'")
-    if train_cfg.render_backend != "pallas":
-        raise NotImplementedError(
-            f"train.render_backend={train_cfg.render_backend!r} is not ported (ROADMAP.md Queue 1 "
-            f"item 5); the port's compositor is the counterpart of 'pallas'")
+    if train_cfg.render_backend not in BACKENDS:
+        raise ValueError(f"render_backend={train_cfg.render_backend!r}: expected one of "
+                         f"{BACKENDS}")
     for flag in ("shard_faces", "shard_render"):
         if getattr(train_cfg, flag):
             raise NotImplementedError(
@@ -198,13 +199,16 @@ def compute_losses(state: TrainState, batch: Mapping,
     if tcfg.supervision == "cubes":
         rendered = decoder.render_cube_views(gaussians, tgt["extrinsics_sphere"], tgt["near"],
                                              tgt["far"], (face, face),
-                                             remat_faces=tcfg.remat_faces)
+                                             remat_faces=tcfg.remat_faces,
+                                             backend=tcfg.render_backend,
+                                             max_per_tile=tcfg.max_per_tile)
         gt = context_cubes(tgt["image_sphere"], face)
         loss_mse = mse_loss(rendered.color, gt)
         img_shape = (face, face)
     else:
         rendered = decoder.render_erp_views(gaussians, tgt["extrinsics_sphere"], tgt["near"],
-                                            tgt["far"], (h, w))
+                                            tgt["far"], (h, w), backend=tcfg.render_backend,
+                                            max_per_tile=tcfg.max_per_tile)
         gt = tgt["image_sphere"]
         loss_mse = sin_weighted_mse(rendered.color, gt)
         img_shape = (h, w)

@@ -147,7 +147,8 @@ class Validator:
     def _decode(self, gaussians, extr, near, far, render_depth=False):
         return decoder.render_erp_views(gaussians, extr, near, far,
                                         tuple(self.cfg.dataset.image_shape),
-                                        render_depth=render_depth)
+                                        render_depth=render_depth,
+                                        backend=self.cfg.train.render_backend)
 
     @torch.no_grad()
     def run(self, state, step: int, writer=None) -> dict:

@@ -444,3 +444,74 @@ def test_pinhole_backward_kernels_match_plain_on_card(cuda_device, kind, span):
                                        err_msg=f"row {row}")
             l2 = np.linalg.norm(k_row - p_row) / (np.linalg.norm(p_row) + 1e-30)
             assert l2 <= L2_TOL, (row, l2)
+
+
+# the scan compositor (render_backend "jax", and ERP views under 2 tiles
+# wide) is plain PyTorch: on the card it must give the CPU's planes (the
+# compositor bars) and gradients (GRAD_TOL of each row's max|g|) on the same
+# inputs; its sums run in another order there (cuBLAS einsum, atomics in the
+# gather's backward)
+
+
+def scan_case(kind, device):
+    """(attrs [V, N, 16], assignments, image shape, wrap_x) on `device`: a
+    64x256 ERP view of the random scene, or the 6 32x32 faces of one pose."""
+    from splatter360_tpu_torch.models.decoder import cube_face_batch
+    from splatter360_tpu_torch.ops.rasterizer import batch_inputs
+
+    shape, *arrays = random_scene(3000, seed=9)
+    means, scales, quats, sh, op = (torch.as_tensor(np.asarray(x, np.float32)) for x in arrays)
+    covs = build_covariance_sym6(scales, quats)
+    c2w = torch.eye(4)[None]
+    if kind == "faces":
+        c2w, near, far, kw = cube_face_batch(c2w, torch.tensor([0.1]), torch.tensor([100.0]),
+                                             means.shape[0])
+        shape = (32, 32)
+    else:
+        near, far, kw = 0.1, 100.0, {}
+    attrs, asg, wrap_x = batch_inputs(means, covs, sh, op, c2w, shape, near, far, **kw)
+    asg = [type(a)(*(f.to(device) if torch.is_tensor(f) else f for f in a)) for a in asg]
+    return attrs.to(device), asg, shape, wrap_x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["erp", "faces"])
+def test_scan_compositor_card_vs_cpu(cuda_device, kind):
+    from splatter360_tpu_torch.ops import composite_scan as ts
+
+    out = {}
+    for dev in (torch.device("cpu"), cuda_device):
+        attrs, asg, shape, wrap_x = scan_case(kind, dev)
+        attrs.requires_grad_(True)
+        before = dict(tc.launch_counts)
+        rgb, alpha, depth = ts.composite_tiles_scan(asg, attrs, shape,
+                                                    torch.zeros(3, device=dev), wrap_x)
+        (((rgb - 0.5) ** 2).sum() + 0.1 * alpha.sum() + 0.01 * depth.sum()).backward()
+        assert tc.launch_counts == before  # no kernel on this path
+        out[dev.type] = [x.detach().cpu() for x in (rgb, alpha, depth, attrs.grad)]
+    for i, atol in enumerate((ATOL_RGB, ATOL_RGB, ATOL_DEPTH)):
+        torch.testing.assert_close(out["cuda"][i], out["cpu"][i], rtol=0, atol=atol)
+    assert float(out["cpu"][1].max()) > 0.5
+    g_cpu, g_gpu = out["cpu"][3], out["cuda"][3]
+    for row in range(tc.N_GRAD):
+        scale = float(g_cpu[..., row].abs().max()) + 1e-30
+        assert float((g_gpu[..., row] - g_cpu[..., row]).abs().max()) <= GRAD_TOL * scale, row
+
+
+@pytest.mark.cuda
+def test_narrow_erp_takes_the_scan_on_card(cuda_device):
+    """render_tiled(backend="pallas") of a 64x128 ERP view: the scan
+    compositor renders it on the card, no kernel launches."""
+    from splatter360_tpu_torch.ops import composite_scan as ts
+    from splatter360_tpu_torch.ops.rasterizer import render_tiled
+
+    _, *arrays = random_scene(3000, seed=9)
+    means, scales, quats, sh, op = (torch.as_tensor(np.asarray(x, np.float32), device=cuda_device)
+                                    for x in arrays)
+    covs = build_covariance_sym6(scales, quats)
+    before, calls = ts.scan_counts[ts.SCAN_NAME], dict(tc.launch_counts)
+    out = render_tiled(means, covs, sh, op, torch.eye(4, device=cuda_device), (64, 128),
+                       backend="pallas", render_depth=True)
+    torch.cuda.synchronize()
+    assert ts.scan_counts[ts.SCAN_NAME] == before + 1 and tc.launch_counts == calls
+    assert out.color.is_cuda and bool(torch.isfinite(out.color).all())

@@ -34,7 +34,7 @@ from splatter360_tpu_torch.models import unet as tu
 from splatter360_tpu_torch.models.adapter import GaussianAdapterConfig
 from splatter360_tpu_torch.models.adapter import adapt_gaussians as t_adapt
 from splatter360_tpu_torch.models.encoder import EncoderConfig, EncoderCostVolume360
-from splatter360_tpu_torch.serve import context_cubes
+from splatter360_tpu_torch.serve import build_model, context_cubes
 
 torch.set_num_threads(2)
 
@@ -259,8 +259,23 @@ def test_encoder_tiny():
 
 
 @pytest.mark.parametrize("flag", ["add_mono_feat", "use_epipolar_trans", "wo_depth_refine",
-                                  "wo_cost_volume", "wo_cube_encoder", "fusion_type"])
+                                  "wo_cost_volume", "wo_cube_encoder", "fusion_type",
+                                  "num_surfaces"])
 def test_unported_flags_raise(flag):
-    kw = {"fusion_type": "concat"} if flag == "fusion_type" else {flag: True}
-    with pytest.raises(NotImplementedError):
-        EncoderCostVolume360(EncoderConfig(**ENC_KW, **kw))
+    """add_mono_feat (not ported yet) and num_surfaces > 1 (the JAX encoder
+    raises too) raise when the model is built; the other options build and
+    run (tests/test_torch_ablations.py holds them to JAX)."""
+    kw = {"fusion_type": "concat", "num_surfaces": 2}.get(flag, True)
+    model_kw = {flag: kw}
+    if flag in ("add_mono_feat", "num_surfaces"):
+        with pytest.raises(NotImplementedError, match=flag):
+            EncoderCostVolume360(EncoderConfig(**ENC_KW, **model_kw))
+        return
+    if flag == "use_epipolar_trans":
+        model_kw["epipolar_num_samples"] = 4
+    img, ext, near, far = (t(x) for x in encoder_inputs(32, 64))
+    model = build_model(EncoderConfig(**ENC_KW, **model_kw), device="cpu")
+    with torch.no_grad():
+        g, d = model(img, context_cubes(img, 16), ext, near, far, 0)
+    assert g.means.shape == (1, 2 * 32 * 64, 3) and d.shape == (1, 2, 32, 64)
+    assert all(torch.isfinite(x).all() for x in (*g, d))

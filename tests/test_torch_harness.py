@@ -26,8 +26,6 @@ from splatter360_tpu_torch.utils.yaml_subset import safe_load
 
 REPO = Path(__file__).resolve().parents[1]
 CONFIGS = ("hm3d.yaml", "replica.yaml", "synthetic_smoke.yaml")
-# synthetic_smoke.yaml's render_backend "jax" is not ported
-PORT_OVERRIDES = {"synthetic_smoke.yaml": ["train.render_backend=pallas"]}
 OVERRIDE_VALUES = ("true", "false", "off", "3", "-7", "2.0e-4", "1e-4", ".5", "[/tmp/x]",
                    "[64,256]", "[1, 1, 1]", "[]", "test", "configs/hm3d.yaml", "wandb://run:v3",
                    "null", "~", "", "'quoted # x'", "[a, 'b c', 2.5]", "{}", "1_000")
@@ -59,9 +57,8 @@ def test_committed_configs_load_alike(name):
     YAML subset reader gives yaml.safe_load's dict."""
     text = (REPO / "configs" / name).read_text()
     assert safe_load(text) == yaml.safe_load(text)
-    ov = PORT_OVERRIDES.get(name, [])
-    got = pconfig.config_to_dict(pconfig.load_config(str(REPO / "configs" / name), ov))
-    assert got == jconfig.config_to_dict(jconfig.load_config(str(REPO / "configs" / name), ov))
+    got = pconfig.config_to_dict(pconfig.load_config(str(REPO / "configs" / name)))
+    assert got == jconfig.config_to_dict(jconfig.load_config(str(REPO / "configs" / name)))
 
 
 def test_yaml_subset_without_pyyaml(monkeypatch):
@@ -107,7 +104,7 @@ def test_overrides_and_unknown_keys():
 
 
 @pytest.mark.parametrize("override, item", [
-    ("train.render_backend=jax", "item 5"), ("test.save_video=true", "item 4"),
+    ("test.save_video=true", "item 4"),
     ("train.shard_render=true", "item 7"), ("checkpointing.pretrained_mono=x.pth", "item 4"),
     ("model.add_mono_feat=true", "item 6"), ("checkpointing.pretrained_backbone=x.pth", "item 4"),
     ("train.shard_faces=true", "item 7")])
@@ -118,11 +115,13 @@ def test_unported_values_raise_when_loaded(override, item):
 
 @pytest.mark.parametrize("override", ["train.optimizer.cosine_lr=false",
                                       "train.loss.lpips_weights=w.pth",
-                                      "train.loss.depth_smoothness_weight=0.1"])
+                                      "train.loss.depth_smoothness_weight=0.1",
+                                      "train.render_backend=jax"])
 def test_values_ported_for_training_load(override):
-    """The linear warm-up schedule, LPIPS weights and the depth smoothness
-    weight load as in the JAX package (tests/test_torch_trainer.py trains
-    with them against JAX)."""
+    """The linear warm-up schedule, LPIPS weights, the depth smoothness
+    weight and the scan compositor load as in the JAX package
+    (tests/test_torch_trainer.py trains with the first three against JAX,
+    tests/test_torch_scan.py holds the scan compositor to composite_jax)."""
     ov = [override]
     assert pconfig.config_to_dict(pconfig.load_config(str(REPO / "configs" / "hm3d.yaml"), ov)) \
         == jconfig.config_to_dict(jconfig.load_config(str(REPO / "configs" / "hm3d.yaml"), ov))
@@ -267,7 +266,7 @@ def test_generate_index_mode(tmp_path):
 
     write_scenes(tmp_path / "data", n_scenes=2, n=60)
     index = main([f"dataset.roots=[{tmp_path / 'data'}]", "mode=generate_index", "--device",
-                  "cpu", f"output_dir={tmp_path / 'out'}", "train.render_backend=pallas"])
+                  "cpu", f"output_dir={tmp_path / 'out'}"])
     assert json.loads((tmp_path / "out" / "evaluation_index.json").read_text()) == index
     assert sorted(index) == ["s0", "s1"]
 
@@ -409,8 +408,7 @@ def test_compute_metrics_offline_vs_jax(tmp_path):
             image_io.save_image(pred, base / "methods" / m / f"{i:04d}.png")
     ref = j_offline(str(base / "gt"), {m: str(base / "methods" / m) for m in "ab"},
                     str(tmp_path / "jax"))
-    got = main([f"output_dir={base}", "mode=compute_metrics", "train.render_backend=pallas"],
-               device="cpu")
+    got = main([f"output_dir={base}", "mode=compute_metrics"], device="cpu")
     assert sorted(got) == sorted(ref) == ["a", "b"]
     for m in ref:
         assert got[m]["n"] == ref[m]["n"] == 3 and got[m]["lpips"] is ref[m]["lpips"] is None
@@ -444,7 +442,7 @@ def test_cli_needs_the_card_unless_told(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     write_scenes(tmp_path / "data", n_scenes=1)
     with pytest.raises(RuntimeError, match="CUDA"):
-        main([f"dataset.roots=[{tmp_path / 'data'}]", "mode=test", "train.render_backend=pallas"])
+        main([f"dataset.roots=[{tmp_path / 'data'}]", "mode=test"])
     with pytest.raises(RuntimeError, match="CUDA"):
         compute_metrics_offline(str(tmp_path), {}, str(tmp_path / "m"))
     with pytest.raises(RuntimeError, match="CUDA"):

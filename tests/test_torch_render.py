@@ -217,10 +217,21 @@ def test_render_tiled_depth_modes_vs_jax(mode):
 
 
 def test_render_tiled_narrow_erp_raises():
-    """Below two tile columns the per-tile seam re-centring is not exact."""
+    """Below two tile columns the per-tile seam re-centring is not exact:
+    the kernels' composite_tiles raises for such an ERP view, and
+    render_tiled(backend="pallas") composites it with the scan compositor,
+    as the JAX package does (tests/test_torch_scan.py holds it to JAX)."""
+    from splatter360_tpu_torch.ops import composite_scan as ts
+    from splatter360_tpu_torch.ops.rasterizer import batch_inputs
+
     g = scene(200)
-    with pytest.raises(ValueError):
-        t_render(*_views(g), torch.eye(4), (32, 128))
+    attrs, asg, wrap_x = batch_inputs(*_views(g), torch.eye(4)[None], (32, 128), 0.1, 100.0)
+    with pytest.raises(ValueError, match="2 tiles"):
+        tc.composite_tiles(asg, attrs, (32, 128), torch.zeros(3), wrap_x)
+    before = ts.scan_counts[ts.SCAN_NAME]
+    out = t_render(*_views(g), torch.eye(4), (32, 128))
+    assert ts.scan_counts[ts.SCAN_NAME] == before + 1
+    assert out.color.shape == (32, 128, 3) and torch.isfinite(out.color).all()
 
 
 def test_render_erp_views_vs_jax():

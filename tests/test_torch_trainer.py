@@ -455,8 +455,7 @@ def test_mode_train_runs_on_the_card_unless_told(tmp_path, monkeypatch):
     from splatter360_tpu_torch.train.trainer import Trainer, Validator
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    argv = [CONFIG, "mode=train", f"dataset.roots=[{tmp_path}]", "train.render_backend=pallas",
-            f"output_dir={tmp_path / 'out'}"]
+    argv = [CONFIG, "mode=train", f"dataset.roots=[{tmp_path}]", f"output_dir={tmp_path / 'out'}"]
     with pytest.raises(RuntimeError, match="CUDA"):
         main(argv)
     cfg = load_config(CONFIG, argv[1:])
