@@ -78,6 +78,13 @@ Phases (any failure ends in a non-zero exit and no result line):
      as written (render_backend jax) through mode=train and mode=test, every
      render the scan compositor's, and one card render against the CPU's; (e)
      a 64x128 ERP view with backend "pallas" through the scan compositor;
+  3o. the mono branch (add_mono_feat, the frozen DINOv2 ViT-S/14):
+     (a-b) hm3d.yaml's model with it, bf16 at HM3D width, warm-started from
+     a seeded file in DINOv2's layout, one served request and 2 ERP train
+     steps through the fused pair, the ViT bit-equal across the steps, the
+     encoder's ms with and without the branch and the ViT's own; (c) the
+     CLI, mode=train (checkpointing.pretrained_mono) then mode=test; (d)
+     the tiny f32 mono encoder and train step, the card against the CPU;
   4. time each kernel and its plain version with CUDA events, the unfused
      path's pack and scatter apart, the fused kernels on the 3-view inputs,
      and the serving render stage by stage; both backward kernels at their
@@ -90,7 +97,8 @@ Phases (any failure ends in a non-zero exit and no result line):
      sums past a tile's exit; each kernel (ms, bound, plain ms) on the cube
      inputs (2e, 3h, 3i) and the forwards on all the train steps' inputs.
 It prints a JSON line of the CLI evaluation (3l), one of the CLI training
-(3m), one of the options and the scan compositor (3n), one of per-kernel
+(3m), one of the options and the scan compositor (3n), one of the mono
+branch (3o), one of per-kernel
 numbers (the ERP path's, the cube path's under cube_*, and the launches of
 3m's runs), the nvidia-smi line, and as its last
 line
@@ -212,6 +220,12 @@ CLI_OPTIONS = ["model.fusion_type=biproj", "model.use_epipolar_trans=true",
 # 3n (d): the repo's minimum end-to-end config, as written (render_backend jax)
 SMOKE_CONFIG = CONFIG.parent / "synthetic_smoke.yaml"
 SMOKE_STEPS = 2
+# phase 3o: the mono branch (hm3d.yaml's model with add_mono_feat, ViT-S/14):
+# its token grid on the 256x256 faces (resized to 252), and the DINOv2
+# parameters a warm start copies: patch_embed (2), pos_embed, norm (2), and
+# 18 a block (2 norms, query/key/value/out, the MLP: 2 each; ls1, ls2)
+MONO_GRID = FACE // 14
+MONO_LEAVES = 5 + 18 * 12
 
 failures: list[str] = []
 
@@ -1343,9 +1357,10 @@ def step_grads(cfg, tcfg, batch, seed, device, noise_seed=None):
     leaf's gradient on the CPU, the kernel launches); with `noise_seed`,
     the parameters first scaled by 1 + 1e-6 noise."""
     from splatter360_tpu_torch.ops.cuda import composite as comp
-    from splatter360_tpu_torch.train.state import create_train_state, train_step
+    from splatter360_tpu_torch.train.state import create_train_state, mono_grid, train_step
 
-    state = create_train_state(cfg, tcfg, seed=seed, device=device)
+    state = create_train_state(cfg, tcfg, seed=seed, device=device,
+                               mono_grid=mono_grid(tcfg, batch["context"]["image_sphere"].shape[2]))
     if noise_seed is not None:
         gen = torch.Generator().manual_seed(noise_seed)
         with torch.no_grad():
@@ -1354,9 +1369,9 @@ def step_grads(cfg, tcfg, batch, seed, device, noise_seed=None):
     grads = {}
 
     def keep(stage):
-        if stage == "backward":
+        if stage == "backward":  # the frozen mono ViT has none
             grads.update({k: p.grad.detach().cpu().clone()
-                          for k, p in state.model.named_parameters()})
+                          for k, p in state.model.named_parameters() if p.grad is not None})
 
     calls = dict(comp.launch_counts)
     metrics = train_step(state, batch, on_stage=keep)
@@ -2254,6 +2269,270 @@ def phase_options_cli(seed):
         shutil.rmtree(root, ignore_errors=True)
 
 
+def dinov2_state(seed: int, dim: int = 384, depth: int = 12, grid: int = 37) -> dict:
+    """A seeded state dict in DINOv2 ViT-S/14's layout (torch.hub
+    dinov2_vits14: its key names and shapes, a pos_embed of 1 + 37*37
+    tokens, the cls and mask tokens), random weights of realistic scale."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def t(*shape, scale=1.0, offset=0.0):
+        return offset + scale * torch.randn(shape, generator=gen)
+
+    sd = {"cls_token": t(1, 1, dim), "mask_token": t(1, dim),
+          "pos_embed": t(1, 1 + grid * grid, dim, scale=0.02),
+          "patch_embed.proj.weight": t(dim, 3, 14, 14, scale=588 ** -0.5),
+          "patch_embed.proj.bias": t(dim, scale=0.02),
+          "norm.weight": t(dim, scale=0.05, offset=1.0), "norm.bias": t(dim, scale=0.02)}
+    for i in range(depth):
+        p = f"blocks.{i}."
+        for name, shape in (("norm1", (dim,)), ("norm2", (dim,)), ("attn.qkv", (3 * dim, dim)),
+                            ("attn.proj", (dim, dim)), ("mlp.fc1", (4 * dim, dim)),
+                            ("mlp.fc2", (dim, 4 * dim))):
+            sd[p + name + ".weight"] = (t(dim, scale=0.05, offset=1.0) if len(shape) == 1
+                                        else t(*shape, scale=shape[1] ** -0.5))
+            sd[p + name + ".bias"] = t(shape[0], scale=0.02)
+        sd[p + "ls1.gamma"] = t(dim, scale=0.02, offset=0.1)
+        sd[p + "ls2.gamma"] = t(dim, scale=0.02, offset=0.1)
+    return sd
+
+
+def vit_ms(model, image, iters=5):
+    """The mono ViT alone, bf16 as apply_encoder runs it: CUDA-event ms of
+    one call on the context panoramas' normalised cube faces resized to a
+    multiple of 14 (2 panoramas: 12 faces of 252x252, 3,888 tokens)."""
+    from splatter360_tpu_torch.models.backbone import normalize_images
+    from splatter360_tpu_torch.models.layers import bilinear_resize
+    from splatter360_tpu_torch.serve import context_cubes
+
+    bf16 = torch.bfloat16
+    faces = normalize_images(context_cubes(image, FACE).to(bf16)).reshape(-1, FACE, FACE, 3)
+    x = bilinear_resize(faces, 14 * MONO_GRID, 14 * MONO_GRID)
+    params = {k: p.to(bf16) for k, p in model.dino.named_parameters()}
+    with torch.no_grad():
+        return time_cuda(lambda: torch.func.functional_call(model.dino, params, (x,)), iters)
+
+
+@phase("3o (a-b). the mono branch at HM3D width, bf16: DINOv2 warm start, a served request and "
+       "2 ERP train steps")
+def phase_mono(seed, root: Path):
+    """hm3d.yaml's model with add_mono_feat (ViT-S/14, its 18x18 token grid
+    on the 256x256 faces), bf16, warm-started from a seeded DINOv2-layout
+    file (MONO_LEAVES parameters): one request through the serving entry
+    points (encode, 4 target ERP views: 1 fused forward launch), then 2 ERP
+    train steps at B = 1 (fused forward and backward), the launches counted
+    over that run; the ViT bit-equal before and after the steps and the
+    rgbd_fusion layers changed; encoder ms with the branch and without it
+    on the same request, the ViT's own ms, the steps' ms and peak."""
+    from dataclasses import replace
+
+    from splatter360_tpu_torch.models.encoder import HM3D
+    from splatter360_tpu_torch.ops.cuda import composite as comp
+    from splatter360_tpu_torch.serve import build_model, encode, render_erp_views
+    from splatter360_tpu_torch.train.checkpoint import warm_start_mono
+    from splatter360_tpu_torch.train.state import TrainConfig, create_train_state, train_step
+
+    path = root / "dinov2_vits14.pth"
+    torch.save(dinov2_state(seed + 50), path)
+    cfg = replace(HM3D, add_mono_feat=True, vit_type="vits")
+    torch.cuda.empty_cache()
+    state = create_train_state(cfg, TrainConfig(supervision="erp"), seed=seed, device="cuda",
+                               mono_grid=MONO_GRID)
+    n = warm_start_mono(state.model, path)
+    print(f"  warm-started the mono branch from {path.name} ({n} leaves)", flush=True)
+    if n != MONO_LEAVES:
+        raise AssertionError(f"warm start copied {n} leaves, expected {MONO_LEAVES}")
+    vit0 = {k: v.clone() for k, v in state.model.dino.state_dict().items()}
+    fusion0 = {k: p.detach().clone() for k, p in state.model.named_parameters()
+               if k.startswith("rgbd_fusion_")}
+    batch, r = option_request(torch.Generator(device="cuda").manual_seed(seed + 51))
+    args = (r["image"], r["ctx_pose"], r["near"], r["far"])
+
+    encode(state.model, *args)  # warm-up (cuDNN autotuning)
+    for k in comp.launch_counts:
+        comp.launch_counts[k] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gaussians, depth_map = encode(state.model, *args)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    views = render_erp_views(gaussians, r["tgt_pose"], r["tgt_near"], r["tgt_far"], (H, W),
+                             render_depth=True)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    check_outputs(gaussians, depth_map, views, r)
+    del gaussians, depth_map, views
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = []
+    for _ in range(2):
+        t3 = time.perf_counter()
+        metrics = train_step(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t3))
+        vals = {k: float(v) for k, v in metrics.items()}
+        if not all(math.isfinite(v) for v in vals.values()):
+            raise AssertionError(f"non-finite metrics {vals}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = dict(comp.launch_counts)
+    want = {k: 3 if k == comp.KERNEL_NAME else 2 if k == comp.BWD_KERNEL_NAME else 0
+            for k in launches}
+    if launches != want:
+        raise AssertionError(f"launches {launches}, expected {want}")
+    vit1 = state.model.dino.state_dict()
+    moved = [k for k in vit0 if not torch.equal(vit0[k], vit1[k])]
+    if moved:
+        raise AssertionError(f"the frozen ViT changed in training: {moved}")
+    still = [k for k, p in state.model.named_parameters()
+             if k in fusion0 and torch.equal(fusion0[k], p.detach())]
+    if still:
+        raise AssertionError(f"rgbd_fusion parameters did not train: {still}")
+    if not all(bool(torch.isfinite(p).all()) for p in state.model.parameters()):
+        raise AssertionError("non-finite parameters")
+
+    vit = vit_ms(state.model, r["image"])
+    base = build_model(HM3D, seed=seed)
+    encode(base, *args)
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    encode(base, *args)
+    torch.cuda.synchronize()
+    base_ms = 1e3 * (time.perf_counter() - t4)
+    out = dict(launches=launches, leaves=n, encoder_ms=1e3 * (t1 - t0),
+               encoder_ms_without=base_ms, vit_ms=vit, render_ms=1e3 * (t2 - t1),
+               step_ms=step_ms, peak_gib=peak, loss=vals["loss"])
+    print(f"  mono: encoder {out['encoder_ms']:.1f} ms (without the branch {base_ms:.1f} ms on "
+          f"the same request; the ViT alone {vit:.3f} ms), render {N_TGT} views "
+          f"{out['render_ms']:.1f} ms, train steps {[round(x, 1) for x in step_ms]} ms, peak "
+          f"{peak:.2f} GiB, loss {vals['loss']:.5f}; launches {launches}; the ViT bit-equal "
+          f"after the steps, rgbd_fusion trained", flush=True)
+    del state, base
+    torch.cuda.empty_cache()
+    return out
+
+
+@phase("3o (c). the CLI with hm3d.yaml + add_mono_feat + checkpointing.pretrained_mono: "
+       "mode=train 2 steps, then mode=test")
+def phase_mono_cli(seed, root: Path):
+    """mode=train on 2 seeded 512x1024 train scenes (bf16, B = 1, a sanity
+    validation, 2 steps), warm-started from phase 3o's DINOv2 file (it
+    prints MONO_LEAVES leaves), then mode=test of its step-2 checkpoint on 2
+    test scenes; every artefact and score; the checkpoint's ViT the file's
+    bit for bit (frozen through the steps)."""
+    from splatter360_tpu_torch.ops.cuda import composite as comp
+    from splatter360_tpu_torch.train import checkpoint as ckpt
+    from splatter360_tpu_torch.utils.torch_convert import convert_dinov2, load_torch_state_dict
+
+    fwd, bwd = comp.KERNEL_NAME, comp.BWD_KERNEL_NAME
+    path = root / "dinov2_vits14.pth"
+    data, out = root / "data", root / "run"
+    cli_scenes(data, seed + 52, "train", 2, TRAIN_FRAMES)
+    cli_scenes(data, seed + 53, "test", 2, CLI_FRAMES)
+    mono = ["model.add_mono_feat=true", f"checkpointing.pretrained_mono={path}"]
+    tr = train_run(
+        "(c) mode=train, the mono branch, bf16, 2 steps",
+        [str(CONFIG), "mode=train", *mono, f"dataset.roots=[{data}]", f"output_dir={out}",
+         "trainer.batch_size=1", "trainer.max_steps=2", "trainer.num_sanity_val_steps=1",
+         "trainer.val_check_interval=0", "trainer.print_log_every_n_steps=1"])
+    line = f"warm-started the mono branch from pretrained_mono ({MONO_LEAVES} leaves)"
+    if line not in tr["printed"]:
+        raise AssertionError(f"(c) mode=train did not print {line!r}")
+    # 2 steps, and the sanity validation's 4 views and 12 video frames
+    want = {fwd: 2 + 13, bwd: 2}
+    unfused = tr["launches"][comp.UNFUSED_KERNEL_NAME] + tr["launches"][
+        comp.UNFUSED_BWD_KERNEL_NAME]
+    if {k: tr["launches"][k] for k in want} != want or unfused:
+        raise AssertionError(f"(c) mode=train: launches {tr['launches']}, expected {want}")
+    check_train_out("(c) mode=train", out, [2], [0], [1, 2])
+    saved = torch.load(out / "checkpoints" / "2" / ckpt.FILE, map_location="cpu",
+                       weights_only=True)["params"]
+    vit = convert_dinov2(load_torch_state_dict(path), MONO_GRID)
+    changed = [k for k, v in vit.items() if not torch.equal(saved[f"dino.{k}"], v)]
+    if changed:
+        raise AssertionError(f"(c) the checkpoint's ViT is not the file's: {changed}")
+    ev = cli_run("(c) mode=test of its checkpoint",
+                 [str(CONFIG), "mode=test", "model.add_mono_feat=true",
+                  f"dataset.roots=[{data}]", f"checkpointing.load={out / 'checkpoints'}",
+                  "test.eval_depth=true", "test.eval_time_skip_steps=1",
+                  f"test.output_path={root / 'test'}"], fwd, saved)
+    if ev["launches"][comp.UNFUSED_KERNEL_NAME]:
+        raise AssertionError(f"(c) mode=test: the unfused forward launched {ev['launches']}")
+    tr.pop("printed", None)
+    return dict(train=tr, test=ev, launches={k: tr["launches"][k] + ev["launches"][k]
+                                             for k in tr["launches"]})
+
+
+@phase("3o (d). the tiny f32 mono encoder and train step: GPU against CPU")
+def phase_mono_small(seed, root: Path):
+    """The tiny f32 encoder of phase 3b with add_mono_feat (ViT-S/14 over
+    the 2x2 token grid of 32x32 faces), warm-started from phase 3o's file,
+    on the card and on the CPU: the outputs at 1e-3 of max|x| (3b's bar);
+    the ViT alone card against CPU in float32 and bf16 (measured, for
+    ROADMAP Queue 3); then small_train's GPU and CPU ERP steps with the
+    branch (3d's bars:
+    the loss at 1e-3 relative, every trainable leaf's gradient at GRAD_TOL
+    of the global max|g|, or one jump by jump_gaps)."""
+    from splatter360_tpu_torch.models.dino import token_grid
+    from splatter360_tpu_torch.serve import build_model, encode
+    from splatter360_tpu_torch.train.checkpoint import warm_start_mono
+
+    options = {"add_mono_feat": True}
+    rng = np.random.default_rng(seed)
+    img = rng.uniform(0, 1, (1, 2, 64, 256, 3)).astype(np.float32)
+    pose = np.tile(np.eye(4, dtype=np.float32), (1, 2, 1, 1))
+    pose[..., :3, 3] = rng.normal(0, 0.2, (1, 2, 3))
+    nf = (np.full((1, 2), 0.1, np.float32), np.full((1, 2), 10.0, np.float32))
+    enc = {}
+    for dev in ("cpu", "cuda"):
+        t = lambda x: torch.as_tensor(x, device=dev)  # noqa: E731
+        model = build_model(small_config(options), seed=seed, device=dev,
+                            mono_grid=token_grid(32))
+        warm_start_mono(model, root / "dinov2_vits14.pth")
+        g, d = encode(model, t(img), t(pose), t(nf[0]), t(nf[1]), device=dev)
+        enc[dev] = [x.cpu() for x in (*g, d)]
+    rels = [float((a - b).abs().max()) / (float(a.abs().max()) + 1e-12)
+            for a, b in zip(enc["cpu"], enc["cuda"])]
+    print("  mono encoder max|cpu-gpu|/max|cpu| " + ", ".join(
+        f"{n} {r:.2e}" for n, r in zip(("means", "covariances", "harmonics", "opacities",
+                                        "depth_map"), rels)), flush=True)
+    if max(rels) > 1e-3:
+        raise AssertionError(f"the GPU mono encoder differs from the CPU's ({max(rels):.2e})")
+    vit = vit_card_vs_cpu(model.dino, img)
+    small_train(seed, N_CTX, options=options)
+    return dict(encoder=max(rels), vit=vit)
+
+
+def vit_card_vs_cpu(dino, img):
+    """The warm-started ViT-S/14 alone on the small request's 12 cube faces
+    (32x32, resized to 28x28: 48 tokens), on the card and on the CPU, in
+    float32 and in bf16 (parameters and input cast, as apply_encoder casts
+    them): max|card - CPU| over max|CPU|, the mean over the mean, and the
+    share of bit-equal elements (ROADMAP Queue 3 records them)."""
+    from splatter360_tpu_torch.models.backbone import normalize_images
+    from splatter360_tpu_torch.models.layers import bilinear_resize
+    from splatter360_tpu_torch.serve import context_cubes
+
+    faces = normalize_images(context_cubes(torch.as_tensor(img), 32)).reshape(-1, 32, 32, 3)
+    x = bilinear_resize(faces, 28, 28)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        res = {}
+        for dev in ("cpu", "cuda"):
+            params = {k: p.to(dev, dtype) for k, p in dino.named_parameters()}
+            with torch.no_grad():
+                res[dev] = torch.func.functional_call(dino, params,
+                                                      (x.to(dev, dtype),)).float().cpu()
+        a, b = res["cpu"], res["cuda"]
+        name = str(dtype).split(".")[-1]
+        out[name] = dict(max_rel=float((a - b).abs().max() / a.abs().max()),
+                         mean_rel=float((a - b).abs().mean() / a.abs().mean()),
+                         equal_share=float((a == b).float().mean()))
+        print(f"  ViT alone, card against CPU, {name}: max {out[name]['max_rel']:.3e} of "
+              f"max|x|, mean {out[name]['mean_rel']:.3e} of mean|x|, "
+              f"{100 * out[name]['equal_share']:.2f}% of elements bit-equal", flush=True)
+        if not bool(torch.isfinite(b).all()):
+            raise AssertionError(f"non-finite ViT output on the card ({name})")
+    return out
+
+
 def scan_gpu_vs_cpu(attrs, assignments, shape, wrap_x, label):
     """composite_tiles_scan on the card against the CPU on the same inputs,
     the planes at the compositor bars (tests/test_torch_cuda.py holds its
@@ -2590,6 +2869,16 @@ def main():
     narrow = phase_narrow_erp(args.seed)
     options_s = time.perf_counter() - t_opts
     print(f"phase 3n took {options_s:.1f} s", flush=True)
+    t_mono = time.perf_counter()
+    mono_root = Path(tempfile.mkdtemp(prefix="splat360_mono_"))
+    try:
+        mono = phase_mono(args.seed, mono_root) or {}
+        mono_cli = phase_mono_cli(args.seed, mono_root) or {}
+        mono_small = phase_mono_small(args.seed, mono_root)
+    finally:
+        shutil.rmtree(mono_root, ignore_errors=True)
+    mono_s = time.perf_counter() - t_mono
+    print(f"phase 3o took {mono_s:.1f} s", flush=True)
     rows = phase_timing(check, serve, bcheck, train, ucheck, ubcheck, serve3, train3, pin,
                         cserve, ctrain, cremat) or {}
     # each path's own kernels, counted over its own run
@@ -2614,7 +2903,9 @@ def main():
             *((f"option {g} at HM3D width", options.get(g),
                unfused if kw.get("gaussians_per_pixel", 1) > 1 else fused)
               for g, kw in OPTION_GROUPS.items()),
-            ("CLI with biproj, epipolar and 2 Gaussians a pixel", options_cli or None, unfused)):
+            ("CLI with biproj, epipolar and 2 Gaussians a pixel", options_cli or None, unfused),
+            ("mono branch at HM3D width", mono or None, fused),
+            ("CLI with the mono branch", mono_cli or None, fused)):
         if res is None:
             failures.append(f"{label} run missing")
         elif min(res["launches"].get(k, 0) for k in names) == 0:
@@ -2630,7 +2921,8 @@ def main():
         over the CLI's bf16 training run of its path (3m (a), or (b) for
         the unfused pair); option_launches over phase 3n (a)'s runs of every
         option group and, for the unfused pair, gpp2_ms at its gpp = 2
-        step's inputs."""
+        step's inputs; mono_launches over phase 3o's runs (the mono
+        branch's request and steps, and its CLI runs)."""
         ctrain = cli_train["b" if "unfused" in name else "a"]
         return dict(name=name, route="cuda", source=f"splatter360_tpu_torch/csrc/{source}",
                     replaces=f"splatter360_tpu/ops/pallas/composite.py:{replaces}",
@@ -2642,6 +2934,7 @@ def main():
                     cube_bound_by=cube_timing["bound_by"],
                     cli_train_launches=ctrain["launches"][name],
                     option_launches=sum(options[g]["launches"][name] for g in OPTION_GROUPS),
+                    mono_launches=mono["launches"][name] + mono_cli["launches"][name],
                     **({"gpp2_ms": options["gpp2"][
                         "bwd_kernel_ms" if "backward" in name else "fwd_kernel_ms"]}
                        if "unfused" in name else {}))
@@ -2676,6 +2969,8 @@ def main():
     print(json.dumps({"options": dict(hm3d=options, small_gpu_vs_cpu=options_small,
                                       cli=options_cli, smoke=smoke, narrow_erp=narrow,
                                       seconds=options_s), "card": smi}))
+    print(json.dumps({"mono": dict(hm3d=mono, cli=mono_cli, small_gpu_vs_cpu=mono_small,
+                                   seconds=mono_s), "card": smi}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -34,7 +34,8 @@ class CheckpointingConfig:
     pretrained_model: Optional[str] = None  # weights-only warm start (training)
     # local torch checkpoints for the reference recipe's warm starts: UniMatch
     # gmdepth weights into both multiview backbones, and DINOv2 ViT weights
-    # for the mono branch (model.add_mono_feat); their loaders are not ported
+    # for the mono branch (model.add_mono_feat, train/checkpoint.warm_start_mono);
+    # the UniMatch loader is not ported
     pretrained_backbone: Optional[str] = None
     pretrained_mono: Optional[str] = None
     every_n_train_steps: int = 20_000
@@ -136,11 +137,10 @@ def check_ported(cfg: RootConfig) -> None:
     state.check_ported(cfg.train)
     if cfg.test.save_video:
         raise NotImplementedError("test.save_video=True (trajectory videos) is not ported "
-                                  "(ROADMAP.md Queue 1 item 4)")
-    for key in ("pretrained_backbone", "pretrained_mono"):
-        if getattr(cfg.checkpointing, key):
-            raise NotImplementedError(f"checkpointing.{key} (the torch weights loaders) is not "
-                                      f"ported (ROADMAP.md Queue 1 item 4)")
+                                  "(ROADMAP.md Queue 1 item 2)")
+    if cfg.checkpointing.pretrained_backbone:
+        raise NotImplementedError("checkpointing.pretrained_backbone (the UniMatch weights "
+                                  "loader) is not ported (ROADMAP.md Queue 1 item 2)")
 
 
 def load_config(path: Optional[str] = None, overrides: Optional[list] = None) -> RootConfig:

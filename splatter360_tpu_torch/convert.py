@@ -4,9 +4,13 @@ The port's modules carry Flax's submodule names, so a parameter's path maps
 one to one; only the leaf and its layout change:
   conv kernel  HWIO [kh, kw, in, out] -> weight OIHW [out, in, kh, kw]
   Dense kernel [in, out]              -> weight [out, in]
+  attention DenseGeneral kernel (the ViT's MultiHeadDotProductAttention):
+    query/key/value [dim, heads, hd]  -> weight [heads * hd, dim]
+    out [heads, hd, dim]              -> weight [dim, heads * hd]
   norm scale                          -> weight
-  bias                                -> bias
-  depth_pe (the epipolar block's)     -> depth_pe, as it is
+  bias                                -> bias (a [heads, hd] bias flattened)
+  depth_pe (the epipolar block's), the ViT's pos_embed and layer scales
+  ls1, ls2                            -> as they are
 and Flax's remat wrapper prefix (CheckpointResBlock_i) becomes ResBlock_i.
 """
 
@@ -42,12 +46,18 @@ def torch_state_from_flax(params: Mapping) -> dict[str, torch.Tensor]:
                 arr = arr.transpose(3, 2, 0, 1)
             elif arr.ndim == 2:
                 arr = arr.T
+            elif arr.ndim == 3 and mods[-1] == "out":
+                arr = arr.reshape(-1, arr.shape[-1]).T
+            elif arr.ndim == 3:
+                arr = arr.reshape(arr.shape[0], -1).T
             else:
                 raise ValueError(f"unexpected kernel rank at {'/'.join(path)}: {arr.shape}")
             leaf = "weight"
         elif leaf == "scale":
             leaf = "weight"
-        elif leaf not in ("bias", "depth_pe"):
+        elif leaf == "bias":
+            arr = arr.reshape(-1)
+        elif leaf not in ("depth_pe", "pos_embed", "ls1", "ls2"):
             raise ValueError(f"unexpected parameter {'/'.join(path)}")
         state[".".join(mods + [leaf])] = torch.from_numpy(np.ascontiguousarray(arr, np.float32))
     return state

@@ -50,11 +50,12 @@ def main(argv=None, device: str | torch.device = "cuda"):
         from .train import checkpoint as ckpt
         from .train.evaluator import Evaluator
         from .train.lpips import make_lpips_fn
-        from .train.state import create_train_state
+        from .train.state import create_train_state, mono_grid
 
         if next(iter(SceneDataset(cfg.dataset, split="test", stage="test")), None) is None:
             raise SystemExit("no test scenes found")
-        state = create_train_state(cfg.model, cfg.train, seed=0, device=dev)
+        state = create_train_state(cfg.model, cfg.train, seed=0, device=dev,
+                                   mono_grid=mono_grid(cfg.train, cfg.dataset.image_shape[0]))
         ckpt_dir = ckpt.resolve_checkpoint_uri(cfg.checkpointing.load) or str(
             Path(cfg.output_dir) / "checkpoints")
         state, ok = ckpt.restore_weights_only(ckpt_dir, state)

@@ -1,31 +1,41 @@
 """EncoderCostVolume360: posed ERP panoramas -> pixel-aligned 3D Gaussians.
 
-Counterpart of splatter360_tpu/models/encoder.py, stages (2)-(6): (2) the
-cube branch backbone -> cube_to_erp; (3) the ERP branch backbone; (4) the
-branches' fusion (fusion_type cee, concat or biproj), then optionally the
-spherical epipolar cross-attention (use_epipolar_trans); (5) the depth
-predictor; (6) the Gaussian adapter, gaussians_per_pixel Gaussians a pixel.
-The wo_* flags are the reference's Table 3 ablations; without a branch
+Counterpart of splatter360_tpu/models/encoder.py, stages (1)-(6): (1) with
+add_mono_feat, the frozen DINOv2 ViT (models/dino.py) on the normalised
+cube faces, resized down to a multiple of 14 and run without a graph (JAX's
+stop_gradient), its tokens resized up to the features' size -> cube_to_erp;
+(2) the cube branch backbone -> cube_to_erp, merged with (1) by the
+rgbd_fusion MLP; (3) the ERP branch backbone; (4) the branches' fusion
+(fusion_type cee, concat or biproj), then optionally the spherical
+epipolar cross-attention (use_epipolar_trans); (5) the depth predictor;
+(6) the Gaussian adapter, gaussians_per_pixel Gaussians a pixel. The wo_*
+flags are the reference's Table 3 ablations; without a branch
 (wo_cube_encoder, wo_erp_encoder) its backbone is not built and zeros take
-its features' place. `apply_encoder` runs it under the config's precision
-policy: float32, or with `bf16_compute` the JAX package's bf16 policy. The
-mono branch (add_mono_feat) raises NotImplementedError (ROADMAP.md).
+its features' place. The ViT's parameters are frozen (requires_grad False),
+so an optimizer over the trainable parameters leaves them out; its token
+grid is a parameter shape, given when the model is built (`mono_grid`,
+dino.token_grid of the cube face size). `apply_encoder` runs the encoder
+under the config's precision policy: float32, or with `bf16_compute` the
+JAX package's bf16 policy.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field, replace
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..geometry.cubemap import cube_to_erp
 from .adapter import GaussianAdapterConfig, adapt_gaussians, map_pdf_to_opacity
-from .backbone import BackboneMultiview
+from .backbone import BackboneMultiview, normalize_images
 from .costvolume import DepthPredictor360
+from .dino import PATCH, VIT_DIMS, DinoViT
+from .dino import LayerNorm as FlaxLayerNorm
 from .epipolar import EpipolarCrossAttention
-from .layers import FUSION_LAYERS
+from .layers import FUSION_LAYERS, Dense, bilinear_resize
 from .types import Gaussians
 
 
@@ -92,12 +102,8 @@ HM3D = EncoderConfig(
 HM3D_F32 = replace(HM3D, bf16_compute=False)
 
 def check_ported(cfg: EncoderConfig) -> None:
-    """Raise NotImplementedError for add_mono_feat (not ported yet) and for
-    num_surfaces > 1 (the JAX encoder raises too: the depth predictor emits
-    one surface)."""
-    if cfg.add_mono_feat:
-        raise NotImplementedError(
-            "model.add_mono_feat=True is not ported (ROADMAP.md Queue 1 item 6)")
+    """Raise NotImplementedError for num_surfaces > 1 (the JAX encoder raises
+    too: the depth predictor emits one surface)."""
     if cfg.num_surfaces != 1:
         raise NotImplementedError(
             "model.num_surfaces > 1: the depth predictor emits one surface (the JAX encoder "
@@ -105,11 +111,22 @@ def check_ported(cfg: EncoderConfig) -> None:
 
 
 class EncoderCostVolume360(nn.Module):
-    def __init__(self, cfg: EncoderConfig):
+    def __init__(self, cfg: EncoderConfig, mono_grid: Optional[int] = None):
+        """`mono_grid`: the ViT's token grid side with add_mono_feat
+        (dino.token_grid of the cube face size the model will be run at)."""
         super().__init__()
         check_ported(cfg)
         self.cfg = cfg
         c, ds = cfg.d_feature, cfg.downscale_factor
+        if cfg.add_mono_feat:
+            if mono_grid is None:
+                raise ValueError("model.add_mono_feat: the ViT's token grid is a parameter "
+                                 "shape; build the model with mono_grid=dino.token_grid(face) "
+                                 "for cube faces of `face` pixels")
+            self.dino = DinoViT(cfg.vit_type, mono_grid).requires_grad_(False)
+            self.rgbd_fusion_0 = Dense(c + VIT_DIMS[cfg.vit_type][0], c, bias=False)
+            self.rgbd_fusion_norm = FlaxLayerNorm(c)
+            self.rgbd_fusion_1 = Dense(c, c, bias=False)
         if not cfg.wo_cube_encoder:
             self.backbone_cube = BackboneMultiview(feature_channels=c, downscale_factor=ds,
                                                    no_cross_attn=cfg.wo_backbone_cross_attn)
@@ -153,6 +170,17 @@ class EncoderCostVolume360(nn.Module):
         fh, fw = h // ds, w // ds
         splits = cfg.multiview_trans_attn_split
 
+        features_mono = None
+        if cfg.add_mono_feat:
+            hc, wc = image_cubes.shape[3:5]
+            with torch.no_grad():  # the frozen branch (JAX: stop_gradient)
+                mono_in = normalize_images(image_cubes).reshape(b * v * cubes, hc, wc, 3)
+                mono_in = bilinear_resize(mono_in, hc // PATCH * PATCH, wc // PATCH * PATCH)
+                feats = bilinear_resize(self.dino(mono_in), hc // ds, wc // ds)
+                feats = feats.reshape(b * v, cubes, hc // ds, wc // ds, feats.shape[-1])
+                features_mono = torch.stack([cube_to_erp(feats[i], fh, fw)
+                                             for i in range(b * v)])
+
         if cfg.wo_cube_encoder:
             trans_features = cnn_features = image_sphere.new_zeros((b * v, fh, fw, c))
         else:
@@ -170,6 +198,9 @@ class EncoderCostVolume360(nn.Module):
         else:
             trans_e, cnn_e = self.backbone_erp(image_sphere, attn_splits=splits)
             trans_erp, cnn_erp = (x.reshape(b * v, fh, fw, c) for x in (trans_e, cnn_e))
+        if features_mono is not None:
+            y = self.rgbd_fusion_0(torch.cat([trans_features, features_mono], dim=-1))
+            trans_features = self.rgbd_fusion_1(F.relu(self.rgbd_fusion_norm(y)))
         trans_fused = self.fuse1(trans_erp, trans_features).reshape(b, v, fh, fw, c)
         cnn_fused = self.fuse2(cnn_erp, cnn_features).reshape(b, v, fh, fw, c)
         if cfg.use_epipolar_trans:

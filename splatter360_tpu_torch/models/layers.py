@@ -30,6 +30,7 @@ from __future__ import annotations
 import functools
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -243,13 +244,58 @@ def softmax(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     return u / u.float().sum(dim=dim, keepdim=True).to(x.dtype)
 
 
-def bilinear_resize(x: torch.Tensor, new_h: int, new_w: int) -> torch.Tensor:
-    """Bilinear resize of [B, H, W, C] with half-pixel centres.
+@functools.lru_cache(maxsize=32)
+def resize_weights(in_size: int, out_size: int) -> np.ndarray:
+    """jax.image.resize's bilinear weight matrix [in_size, out_size] in
+    float32 (compute_weight_mat of jax/_src/image/scale.py with the
+    triangle kernel and antialiasing): output sample j sits at (j + 0.5) /
+    scale - 0.5 of the input, the triangle is widened by 1 / scale when
+    shrinking, each column is normalised to sum 1, and a sample outside the
+    input gets no weight. Rounded as XLA compiles it (jax.image.resize is
+    jitted): the sample position in one rounding (a fused multiply-add),
+    the division by the kernel's width a multiplication by its float32
+    reciprocal, the column sums taken row by row."""
+    f32 = np.float32
+    inv_scale = f32(1.0 / (out_size / in_size))
+    kernel_scale = max(inv_scale, f32(1.0))
+    centres = np.arange(out_size, dtype=f32) + f32(0.5)
+    sample = (centres.astype(np.float64) * float(inv_scale) - 0.5).astype(f32)
+    dist = np.abs(sample[None, :] - np.arange(in_size, dtype=f32)[:, None]) * (
+        f32(1.0) / kernel_scale)
+    weights = np.maximum(f32(0.0), f32(1.0) - dist)
+    total = np.zeros((1, out_size), f32)
+    for row in weights:
+        total += row
+    weights = np.where(np.abs(total) > f32(1000.0 * np.finfo(np.float32).eps),
+                       weights / np.where(total != 0, total, f32(1.0)), f32(0.0))
+    inside = (sample >= -0.5) & (sample <= in_size - 0.5)
+    return np.where(inside[None, :], weights, f32(0.0)).astype(f32)
 
-    Only upsampling is ported: jax.image.resize antialiases when it
-    downsamples, which F.interpolate(antialias=False) does not."""
+
+def _resize_axis(x: torch.Tensor, dim: int, size: int) -> torch.Tensor:
+    """One of jax.image.resize's contractions: axis `dim` of x to `size`
+    through resize_weights, summed in float32 and rounded to x's dtype (the
+    weights are rounded to it first, as JAX casts them)."""
+    acc = torch.promote_types(x.dtype, torch.float32)
+    w = torch.from_numpy(resize_weights(x.shape[dim], size)).to(x.device, x.dtype)
+    y = torch.tensordot(x.movedim(dim, -1).to(acc), w.to(acc), dims=1)
+    return y.to(x.dtype).movedim(-1, dim)
+
+
+def bilinear_resize(x: torch.Tensor, new_h: int, new_w: int) -> torch.Tensor:
+    """Bilinear resize of [B, H, W, C] with half-pixel centres, as
+    jax.image.resize(..., "bilinear").
+
+    Upsampling interpolates without antialiasing (F.interpolate). When an
+    axis shrinks, JAX antialiases: every axis that changes size is then
+    contracted with its weight matrix (resize_weights), the height first,
+    then the width, as XLA orders jax.image.resize's einsum there."""
     if new_h < x.shape[1] or new_w < x.shape[2]:
-        raise NotImplementedError("bilinear_resize: downsampling (antialiased in JAX) is not ported")
+        if new_h != x.shape[1]:
+            x = _resize_axis(x, 1, new_h)
+        if new_w != x.shape[2]:
+            x = _resize_axis(x, 2, new_w)
+        return x
     if x.dtype == torch.float32:
         y = F.interpolate(x.permute(0, 3, 1, 2), size=(new_h, new_w), mode="bilinear",
                           align_corners=False, antialias=False)

@@ -6,6 +6,7 @@ evaluator.py: `_encode`, `_decode_erp`, `_decode_cubes`) and `_context_cubes`
 (train/state.py):
 
     model = build_model(HM3D, seed=0)                       # or state_dict=...
+    # the mono branch: build_model(replace(HM3D, add_mono_feat=True), mono_grid=18)
     gaussians, depth = encode(model, images, c2w, near, far)
     out = render_erp_views(gaussians, target_c2w, near_t, far_t, (512, 1024))
     faces = render_cube_views(gaussians, target_c2w, near_t, far_t, 256)
@@ -51,11 +52,14 @@ def init_weights(model: torch.nn.Module, seed: int) -> None:
 
 
 def build_model(cfg: EncoderConfig, seed: int = 0, device: str | torch.device = "cuda",
-                state_dict: Optional[Mapping[str, torch.Tensor]] = None) -> EncoderCostVolume360:
+                state_dict: Optional[Mapping[str, torch.Tensor]] = None,
+                mono_grid: Optional[int] = None) -> EncoderCostVolume360:
     """The encoder with `state_dict` (see convert.torch_state_from_flax) or
-    seeded random weights, in eval mode on `device`."""
+    seeded random weights, in eval mode on `device`. With add_mono_feat,
+    `mono_grid` is the ViT's token grid: models.dino.token_grid(H // 2)
+    for encode()'s cube faces of H // 2 pixels (18 at 512 x 1024)."""
     dev = resolve_device(device)
-    model = EncoderCostVolume360(cfg)
+    model = EncoderCostVolume360(cfg, mono_grid)
     if state_dict is not None:
         model.load_state_dict(state_dict)
     else:

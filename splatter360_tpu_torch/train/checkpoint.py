@@ -8,9 +8,16 @@ weights-only modes with JAX's layout of step directories:
                                        state_dict, "step": int}
 
 written to a temporary name and renamed, so that a step directory holds a
-whole checkpoint or none. Orbax checkpoints written by the JAX package are
-not read here (that needs orbax; ROADMAP.md), nor are the partial warm
-starts from torch weight files (the weights-loader item).
+whole checkpoint or none. The frozen mono ViT (add_mono_feat) is in the
+parameters but not in Adam's state: the port's optimizer holds only the
+trainable parameters, where JAX's optax state keeps zero moments for the
+ViT's leaves too (its gradients are 0 by stop_gradient), so a reader of
+JAX checkpoints must drop those. Orbax checkpoints written by the JAX
+package are not read here (that needs orbax; ROADMAP.md Queue 1 item 2).
+
+Partial warm starts from torch weight files, as the JAX package's: the
+mono branch's DINOv2 ViT (`warm_start_mono`, checkpointing.pretrained_mono).
+The UniMatch backbones' (pretrained_backbone) is not ported yet.
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ from typing import Optional
 
 import torch
 
+from ..utils.torch_convert import convert_dinov2, load_torch_state_dict
 from .state import TrainState
 
 FILE = "checkpoint.pt"
@@ -85,6 +93,38 @@ def restore_weights_only(directory, state: TrainState, step: Optional[int] = Non
         return state, False
     state.model.load_state_dict(ckpt["params"])
     return state, True
+
+
+def partial_warm_start(module: torch.nn.Module, donor) -> int:
+    """Copy each donor tensor into `module`'s parameter of the same name and
+    shape, in place (the reference's key-intersection warm start); returns
+    how many were copied."""
+    params = dict(module.named_parameters())
+    n = 0
+    with torch.no_grad():
+        for name, value in donor.items():
+            p = params.get(name)
+            if p is not None and tuple(p.shape) == tuple(value.shape):
+                p.copy_(value)
+                n += 1
+    return n
+
+
+def warm_start_mono(model: torch.nn.Module, path) -> int:
+    """The reference's DINOv2 mono-branch load: the ViT torch weight file at
+    `path` (utils/torch_convert.convert_dinov2, pos_embed resampled to the
+    model's token grid) into the encoder's frozen `dino` module. Returns the
+    number of parameters copied; ValueError without a `dino` module (the
+    model needs model.add_mono_feat), or when none matched."""
+    dino = getattr(model, "dino", None)
+    if dino is None:
+        raise ValueError("checkpointing.pretrained_mono is set but the model has no `dino` "
+                         "module: enable model.add_mono_feat")
+    n = partial_warm_start(dino, convert_dinov2(load_torch_state_dict(path), dino.grid))
+    if n == 0:
+        raise ValueError(f"checkpointing.pretrained_mono={str(path)!r}: 0 parameter leaves "
+                         f"matched the model's dino module (wrong vit_type?)")
+    return n
 
 
 def resolve_checkpoint_uri(path: str | None) -> str | None:

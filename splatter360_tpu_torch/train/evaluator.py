@@ -12,8 +12,11 @@ mse_dict.json, benchmark.json (timings past the first
 `eval_time_skip_steps`) and peak_memory.json.
 
 The metrics are computed on the device; only what is written moves to the
-host. Videos (`render_video`) and band-sharded decoding (`shard_render`)
-are not ported (ROADMAP.md Queue 1 items 4 and 7).
+host. Videos (`render_video`) are not ported (ROADMAP.md Queue 1 item 2);
+band-sharded decoding (`shard_render`) acts as off on one device, as in
+JAX, and across cards is not ported (item 4). The state's encoder is the
+one to score: with add_mono_feat its ViT comes from the checkpoint, and no
+warm start is made here (nor in JAX's Evaluator).
 """
 
 from __future__ import annotations

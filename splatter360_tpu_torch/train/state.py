@@ -35,6 +35,7 @@ import torch
 
 from ..device import resolve_device, set_f32_policy
 from ..models import decoder
+from ..models.dino import token_grid
 from ..models.encoder import EncoderConfig, EncoderCostVolume360, apply_encoder
 from ..ops.rasterizer import BACKENDS
 from ..serve import build_model, context_cubes
@@ -71,23 +72,42 @@ class TrainConfig:
     # render each target view's 6 faces again in the backward instead of
     # keeping their activations (torch.utils.checkpoint); hm3d.yaml sets False
     remat_faces: bool = True
+    # band- and face-sharded renders across cards: off on one device, as in
+    # JAX (check_devices)
     shard_render: bool = False
     shard_faces: bool = False
 
 
 def check_ported(train_cfg: TrainConfig) -> None:
-    """Raise for a value off the ported path (NotImplementedError, naming
-    its ROADMAP.md item) or an unknown supervision or render backend
-    (ValueError)."""
+    """Raise ValueError for an unknown supervision or render backend.
+    shard_render and shard_faces load: on one device the JAX package runs
+    them as off, and so does the port (check_devices)."""
     if train_cfg.supervision not in ("cubes", "erp"):
         raise ValueError(f"supervision={train_cfg.supervision!r}: expected 'cubes' or 'erp'")
     if train_cfg.render_backend not in BACKENDS:
         raise ValueError(f"render_backend={train_cfg.render_backend!r}: expected one of "
                          f"{BACKENDS}")
+
+
+def check_devices(train_cfg: TrainConfig, device: torch.device) -> None:
+    """shard_render and shard_faces shard across cards in JAX when there are
+    several, and act as off on one (evaluator.py:53, trainer.py:76; a 1x1
+    (data, face) mesh). The port runs on one device: the flags are off on
+    the CPU and on one card, and raise NotImplementedError where more than
+    one card is visible, since it would have to shard there."""
+    if device.type != "cuda" or torch.cuda.device_count() <= 1:
+        return
     for flag in ("shard_faces", "shard_render"):
         if getattr(train_cfg, flag):
             raise NotImplementedError(
-                f"train.{flag}=True is not ported (ROADMAP.md Queue 1 item 7)")
+                f"train.{flag}=True with {torch.cuda.device_count()} cards: sharding across "
+                f"cards is not ported (ROADMAP.md Queue 1 item 4)")
+
+
+def mono_grid(train_cfg: TrainConfig, image_height: int) -> int:
+    """The mono ViT's token grid side for the train step's cube faces
+    (cube_face_size, or H // 2)."""
+    return token_grid(train_cfg.cube_face_size or image_height // 2)
 
 
 def learning_rate(cfg: OptimizerConfig, count: int) -> float:
@@ -143,7 +163,8 @@ class TrainState:
 
 
 def make_optimizer(params, cfg: OptimizerConfig) -> torch.optim.Adam:
-    """Adam with optax's defaults (b1 0.9, b2 0.999, eps 1e-8, eps_root 0);
+    """Adam with optax's defaults (b1 0.9, b2 0.999, eps 1e-8, eps_root 0)
+    over `params` (create_train_state passes the trainable ones);
     train_step sets the learning rate of each update from learning_rate()."""
     return torch.optim.Adam(params, lr=learning_rate(cfg, 0), betas=(0.9, 0.999), eps=1e-8)
 
@@ -151,15 +172,21 @@ def make_optimizer(params, cfg: OptimizerConfig) -> torch.optim.Adam:
 def create_train_state(encoder_cfg: EncoderConfig, train_cfg: TrainConfig, seed: int = 0,
                        device: str | torch.device = "cuda",
                        state_dict: Optional[Mapping[str, torch.Tensor]] = None,
-                       lpips_state: Optional[Mapping[str, torch.Tensor]] = None) -> TrainState:
-    """The encoder with `state_dict` or seeded random weights, the frozen
-    LPIPS network (when its weight is > 0) with `lpips_state`, else the
-    file `train_cfg.loss.lpips_weights`, else seeded random features, Adam
+                       lpips_state: Optional[Mapping[str, torch.Tensor]] = None,
+                       mono_grid: Optional[int] = None) -> TrainState:
+    """The encoder with `state_dict` or seeded random weights (`mono_grid`:
+    the mono ViT's token grid with add_mono_feat, see mono_grid()), the
+    frozen LPIPS network (when its weight is > 0) with `lpips_state`, else
+    the file `train_cfg.loss.lpips_weights`, else seeded random features,
+    Adam over the trainable parameters (not the frozen ViT's: JAX's zero
+    gradients there give zero updates and add nothing to the clip's norm)
     and a step counter at 0, on `device`."""
     check_ported(train_cfg)
     dev = resolve_device(device)
+    check_devices(train_cfg, dev)
     set_f32_policy()
-    model = build_model(encoder_cfg, seed=seed, device=dev, state_dict=state_dict).train()
+    model = build_model(encoder_cfg, seed=seed, device=dev, state_dict=state_dict,
+                        mono_grid=mono_grid).train()
     lpips = None
     if train_cfg.loss.lpips_weight > 0:
         lpips = LPIPS()
@@ -170,7 +197,8 @@ def create_train_state(encoder_cfg: EncoderConfig, train_cfg: TrainConfig, seed:
         else:
             init_lpips(lpips, seed)
         lpips = lpips.requires_grad_(False).to(dev).eval()
-    return TrainState(model=model, optimizer=make_optimizer(model.parameters(), train_cfg.optimizer),
+    trainable = [p for p in model.parameters() if p.requires_grad]
+    return TrainState(model=model, optimizer=make_optimizer(trainable, train_cfg.optimizer),
                       encoder_cfg=encoder_cfg, train_cfg=train_cfg, lpips=lpips)
 
 

@@ -12,7 +12,9 @@ prefetch thread, so a batch may be sampled a step or two behind it, as in
 JAX). The first batch is drawn before the state is built; with
 `checkpointing.resume` the state is restored from <output_dir>/checkpoints
 (the data stream starts again from its seed: data is not checkpointed), and
-at step 0 `checkpointing.pretrained_model` is a weights-only warm start.
+at step 0 `checkpointing.pretrained_model` is a weights-only warm start,
+then `checkpointing.pretrained_mono` loads a DINOv2 weight file into the
+frozen mono ViT (add_mono_feat; checkpoint.warm_start_mono).
 Each step is train.state.train_step. Metrics reach the host only at a log
 step (`step % print_log_every_n_steps == 0 or step <= 1`): printed and
 written as `train/<metric>` scalars to <output_dir>/tb (utils/tb_events.py).
@@ -22,7 +24,9 @@ training goes on. Checkpoints every `every_n_train_steps` steps and at the
 end, keeping `max_to_keep`. `trainer.profile_steps` > 0 traces steps
 [profile_start, profile_start + profile_steps) with torch.profiler into
 <output_dir>/profile/. The global batch is the device's batch: the data
-mesh and face sharding are not ported (ROADMAP.md Queue 1 item 7).
+mesh and face sharding across cards are not ported (ROADMAP.md Queue 1
+item 4); on one device train.shard_faces and shard_render act as off, as
+in JAX.
 """
 
 from __future__ import annotations
@@ -46,7 +50,7 @@ from ..utils.step_tracker import StepTracker
 from ..utils.tb_events import SummaryWriter
 from . import checkpoint as ckpt
 from .metrics import compute_psnr, compute_ssim
-from .state import _on_device, create_train_state, train_step
+from .state import _on_device, create_train_state, mono_grid, train_step
 
 # frames of the validation's interpolation video, and its rate
 VIDEO_FRAMES, VIDEO_FPS = 12, 8
@@ -234,7 +238,9 @@ class Trainer:
         cfg, dev = self.cfg, self.device
         batch_iter = iter(prefetcher)
         first = next(batch_iter)
-        state = create_train_state(cfg.model, cfg.train, seed=cfg.trainer.seed, device=dev)
+        h = first["context"]["image_sphere"].shape[2]
+        state = create_train_state(cfg.model, cfg.train, seed=cfg.trainer.seed, device=dev,
+                                   mono_grid=mono_grid(cfg.train, h))
 
         ckpt_dir = self.out / "checkpoints"
         if cfg.checkpointing.resume:
@@ -246,6 +252,10 @@ class Trainer:
                 ckpt.resolve_checkpoint_uri(cfg.checkpointing.pretrained_model), state)
             if ok:
                 print("warm-started weights from pretrained_model")
+        if cfg.checkpointing.pretrained_mono and state.step == 0:
+            n = ckpt.warm_start_mono(
+                state.model, ckpt.resolve_checkpoint_uri(cfg.checkpointing.pretrained_mono))
+            print(f"warm-started the mono branch from pretrained_mono ({n} leaves)")
 
         validator = Validator(cfg, self.out, dev)
         if cfg.trainer.num_sanity_val_steps > 0 and state.step == 0:

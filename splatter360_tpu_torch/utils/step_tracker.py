@@ -5,7 +5,7 @@ step after each update and the bounded view sampler reads it (from the
 prefetch thread) to widen its context gap over the curriculum. Threads share
 a plain cell under a lock. The JAX tracker's `multiprocess` option (a
 multiprocessing.Value for loaders in other processes) is not ported: the
-port has no multi-process loader (ROADMAP.md Queue 1 item 7).
+port has no multi-process loader (ROADMAP.md Queue 1 item 4).
 """
 
 from __future__ import annotations

@@ -94,6 +94,9 @@ TINY_KW = dict(ENC_KW, epipolar_num_samples=8)
 # JAX's side of the groups runs in WORKERS processes beside the rest of the
 # suite: at most half the host's cores and 4 (each holds ~0.9 GB)
 WORKERS = max(1, min(4, (os.cpu_count() or 2) // 2))
+# the longest a test waits for its group's JAX side (~20-40 s a group alone;
+# a worker that hangs or dies fails the test in bounded time, not the suite)
+RESULT_TIMEOUT = 900
 
 
 def _cut_backbones():
@@ -242,7 +245,7 @@ def test_option_f32_vs_jax(jax_refs, group):
     the global max|g|; JAX's init tree is the port's."""
     kw = GROUPS[group]
     outs, grads = port_run(kw, bf16=False)
-    ref = jax_refs[group].result()
+    ref = jax_refs[group].result(timeout=RESULT_TIMEOUT)
     assert ref["tree_match"], "JAX's parameter tree is not the port's"
     n = 2 * H * W * kw.get("gaussians_per_pixel", 1)
     assert outs[0].shape == (1, n, 3)
@@ -262,7 +265,7 @@ def test_option_bf16_vs_jax(jax_refs, group):
     """Each output within the policy's own rounding: d_port <= 1.5 d_policy
     (max) and <= 1.25 (mean), d_policy being JAX bf16 against JAX f32."""
     outs, _ = port_run(GROUPS[group], bf16=True)
-    ref = jax_refs[group].result()
+    ref = jax_refs[group].result(timeout=RESULT_TIMEOUT)
     for name, j32, j16, p16 in zip(OUTPUTS, ref["f32"], ref["bf16"], outs):
         assert p16.dtype == torch.float32 and torch.isfinite(p16).all(), name
         (d_port, d_policy), (m_port, m_policy) = distances(j32, j16, p16)

@@ -515,3 +515,51 @@ def test_narrow_erp_takes_the_scan_on_card(cuda_device):
     torch.cuda.synchronize()
     assert ts.scan_counts[ts.SCAN_NAME] == before + 1 and tc.launch_counts == calls
     assert out.color.is_cuda and bool(torch.isfinite(out.color).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape, size", [((12, 256, 256, 3), 252), ((1, 37, 37, 384), 18)],
+                         ids=["cube faces 256 to 252", "pos_embed grid 37 to 18"])
+def test_downsample_card_vs_cpu(cuda_device, shape, size):
+    """The mono branch's antialiased bilinear downsample (layers.
+    bilinear_resize), card against CPU: float32 within 1e-6 of max|x|
+    (tests/test_torch_mono.py's bar against JAX), bf16 within one bf16 step
+    (2^-7 of max|x|)."""
+    from splatter360_tpu_torch.models.layers import bilinear_resize
+
+    x = torch.from_numpy(np.random.default_rng(1).normal(size=shape).astype(np.float32))
+    for dtype, tol in ((torch.float32, 1e-6), (torch.bfloat16, 2.0**-7)):
+        cpu = bilinear_resize(x.to(dtype), size, size).float()
+        card = bilinear_resize(x.to(dtype).to(cuda_device), size, size).float().cpu()
+        assert float((cpu - card).abs().max()) <= tol * float(x.abs().max()), dtype
+
+
+@pytest.mark.cuda
+def test_mono_encoder_card_vs_cpu(cuda_device):
+    """The tiny f32 encoder with the mono branch (ViT-S/14 over the 2x2
+    token grid of 32x32 cube faces) from the same seeded weights on the
+    card and on the CPU: every output within 1e-3 of max|x| (chip_smoke.py
+    3b's bar for the tiny encoder)."""
+    from splatter360_tpu_torch.models.adapter import GaussianAdapterConfig
+    from splatter360_tpu_torch.models.dino import token_grid
+    from splatter360_tpu_torch.models.encoder import EncoderConfig
+    from splatter360_tpu_torch.serve import build_model, encode
+
+    cfg = EncoderConfig(
+        d_feature=32, num_depth_candidates=16, costvolume_unet_feat_dim=32,
+        costvolume_unet_channel_mult=(1, 1), costvolume_unet_attn_res=(2,),
+        depth_unet_feat_dim=8, depth_unet_attn_res=(8,), depth_unet_channel_mult=(1, 1, 1, 1),
+        gaussian_adapter=GaussianAdapterConfig(sh_degree=1), add_mono_feat=True)
+    rng = np.random.default_rng(0)
+    img = rng.uniform(0, 1, (1, 2, 64, 256, 3)).astype(np.float32)
+    pose = np.tile(np.eye(4, dtype=np.float32), (1, 2, 1, 1))
+    pose[..., :3, 3] = rng.normal(0, 0.2, (1, 2, 3))
+    near, far = np.full((1, 2), 0.1, np.float32), np.full((1, 2), 10.0, np.float32)
+    outs = {}
+    for dev in ("cpu", cuda_device):
+        model = build_model(cfg, seed=0, device=dev, mono_grid=token_grid(32))
+        g, d = encode(model, img, pose, near, far, device=dev)
+        outs[str(dev)] = [x.cpu() for x in (*g, d)]
+    for a, b in zip(outs["cpu"], outs[str(cuda_device)]):
+        assert torch.isfinite(b).all()
+        assert float((a - b).abs().max()) <= 1e-3 * float(a.abs().max())

@@ -33,6 +33,7 @@ from splatter360_tpu_torch.models import transformer as tt
 from splatter360_tpu_torch.models import unet as tu
 from splatter360_tpu_torch.models.adapter import GaussianAdapterConfig
 from splatter360_tpu_torch.models.adapter import adapt_gaussians as t_adapt
+from splatter360_tpu_torch.models.dino import token_grid
 from splatter360_tpu_torch.models.encoder import EncoderConfig, EncoderCostVolume360
 from splatter360_tpu_torch.serve import build_model, context_cubes
 
@@ -126,13 +127,15 @@ def test_residual_block_and_cee():
 
 
 def test_bilinear_resize_upsample():
-    """x8 upsampling (the only direction on the serving path): half-pixel
-    centres, edge clamp, no antialiasing on either side."""
+    """x8 upsampling (the serving path's): half-pixel centres, edge clamp,
+    no antialiasing on either side; and the antialiased downsample JAX
+    takes when an axis shrinks (tests/test_torch_mono.py holds it at the
+    mono branch's shapes)."""
     x = np.random.default_rng(5).normal(size=(2, 4, 8, 3)).astype(np.float32)
     ref = jl.bilinear_resize(jnp.asarray(x), 32, 64)
     assert_close(ref, tl.bilinear_resize(t(x), 32, 64), TOL_LAYER, "resize")
-    with pytest.raises(NotImplementedError):
-        tl.bilinear_resize(t(x), 2, 4)
+    ref = jl.bilinear_resize(jnp.asarray(x), 2, 4)
+    assert_close(ref, tl.bilinear_resize(t(x), 2, 4), TOL_LAYER, "downsample")
 
 
 def test_transformer():
@@ -262,19 +265,21 @@ def test_encoder_tiny():
                                   "wo_cost_volume", "wo_cube_encoder", "fusion_type",
                                   "num_surfaces"])
 def test_unported_flags_raise(flag):
-    """add_mono_feat (not ported yet) and num_surfaces > 1 (the JAX encoder
-    raises too) raise when the model is built; the other options build and
-    run (tests/test_torch_ablations.py holds them to JAX)."""
+    """num_surfaces > 1 raises when the model is built (the JAX encoder
+    raises too); the other options, the mono branch (vits, a 1x1 token grid
+    on 16x16 faces) among them, build and run (tests/test_torch_ablations.py
+    and tests/test_torch_mono.py hold them to JAX)."""
     kw = {"fusion_type": "concat", "num_surfaces": 2}.get(flag, True)
     model_kw = {flag: kw}
-    if flag in ("add_mono_feat", "num_surfaces"):
+    if flag == "num_surfaces":
         with pytest.raises(NotImplementedError, match=flag):
             EncoderCostVolume360(EncoderConfig(**ENC_KW, **model_kw))
         return
     if flag == "use_epipolar_trans":
         model_kw["epipolar_num_samples"] = 4
     img, ext, near, far = (t(x) for x in encoder_inputs(32, 64))
-    model = build_model(EncoderConfig(**ENC_KW, **model_kw), device="cpu")
+    model = build_model(EncoderConfig(**ENC_KW, **model_kw), device="cpu",
+                        mono_grid=token_grid(16))
     with torch.no_grad():
         g, d = model(img, context_cubes(img, 16), ext, near, far, 0)
     assert g.means.shape == (1, 2 * 32 * 64, 3) and d.shape == (1, 2, 32, 64)

@@ -104,25 +104,24 @@ def test_overrides_and_unknown_keys():
 
 
 @pytest.mark.parametrize("override, item", [
-    ("test.save_video=true", "item 4"),
-    ("train.shard_render=true", "item 7"), ("checkpointing.pretrained_mono=x.pth", "item 4"),
-    ("model.add_mono_feat=true", "item 6"), ("checkpointing.pretrained_backbone=x.pth", "item 4"),
-    ("train.shard_faces=true", "item 7")])
+    ("test.save_video=true", "item 2"), ("checkpointing.pretrained_backbone=x.pth", "item 2")])
 def test_unported_values_raise_when_loaded(override, item):
     with pytest.raises(NotImplementedError, match=item):
         pconfig.load_config(str(REPO / "configs" / "hm3d.yaml"), [override])
 
 
-@pytest.mark.parametrize("override", ["train.optimizer.cosine_lr=false",
-                                      "train.loss.lpips_weights=w.pth",
-                                      "train.loss.depth_smoothness_weight=0.1",
-                                      "train.render_backend=jax"])
+@pytest.mark.parametrize("override", [
+    "train.optimizer.cosine_lr=false", "train.loss.lpips_weights=w.pth",
+    "train.loss.depth_smoothness_weight=0.1", "train.render_backend=jax",
+    "model.add_mono_feat=true", "model.add_mono_feat=true checkpointing.pretrained_mono=x.pth"])
 def test_values_ported_for_training_load(override):
     """The linear warm-up schedule, LPIPS weights, the depth smoothness
-    weight and the scan compositor load as in the JAX package
-    (tests/test_torch_trainer.py trains with the first three against JAX,
-    tests/test_torch_scan.py holds the scan compositor to composite_jax)."""
-    ov = [override]
+    weight, the scan compositor and the mono branch with its DINOv2 warm
+    start load as in the JAX package (tests/test_torch_trainer.py trains
+    with the first three against JAX, tests/test_torch_scan.py holds the
+    scan compositor to composite_jax, tests/test_torch_mono.py the mono
+    branch and its loader)."""
+    ov = override.split()
     assert pconfig.config_to_dict(pconfig.load_config(str(REPO / "configs" / "hm3d.yaml"), ov)) \
         == jconfig.config_to_dict(jconfig.load_config(str(REPO / "configs" / "hm3d.yaml"), ov))
 
@@ -451,6 +450,55 @@ def test_cli_needs_the_card_unless_told(tmp_path, monkeypatch):
         make_lpips_fn()
     with pytest.raises(RuntimeError, match="CUDA"):
         main(["mode=train"])
+
+
+SHARD_H, SHARD_W = 32, 64
+
+
+@pytest.mark.parametrize("flag", ["shard_render", "shard_faces"])
+def test_shard_flags_run_as_off_on_one_device(tmp_path, flag):
+    """train.shard_render and train.shard_faces load, and on one device run
+    as off, as the JAX package's do (it shards only across several devices;
+    its sharded renders equal the unsharded ones, tests/test_render_sharding.py):
+    one tiny train step (cube supervision for shard_faces, which JAX applies
+    only there) and one Evaluator run on the CPU, bit-equal to the same with
+    the flag unset."""
+    from splatter360_tpu_torch.data.scene_io import write_synthetic_scene
+    from splatter360_tpu_torch.train.evaluator import Evaluator
+    from splatter360_tpu_torch.train.state import create_train_state, train_step
+    from test_torch_eval import OVERRIDES
+    from test_torch_train import step_batch
+
+    write_synthetic_scene(tmp_path / "data", "test", "t0", n_frames=12,
+                          image_shape=(SHARD_H, SHARD_W), n_gaussians=200, seed=4, device="cpu")
+    tiny = [o for o in OVERRIDES if not o.startswith("dataset.image_shape")]
+    base = [*tiny, f"dataset.roots=[{tmp_path / 'data'}]",
+            f"dataset.image_shape=[{SHARD_H},{SHARD_W}]", "model.bf16_compute=false",
+            "train.loss.lpips_weight=0", "test.save_image=false"]
+    if flag == "shard_faces":
+        base.append("train.supervision=cubes")
+    batch = step_batch()
+    for part in batch.values():
+        for k in ("image_sphere", "depth_sphere"):
+            part[k] = part[k][:, :, :SHARD_H, :SHARD_W]
+    runs = {}
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        for on in (False, True):
+            cfg = pconfig.load_config(str(REPO / "configs" / "hm3d.yaml"), [
+                *base, f"train.{flag}={str(on).lower()}", f"test.output_path={tmp_path / str(on)}"])
+            assert getattr(cfg.train, flag) is on
+            state = create_train_state(cfg.model, cfg.train, seed=0, device="cpu")
+            metrics = train_step(state, batch)
+            scores = Evaluator(cfg, state, device="cpu").run()
+            runs[on] = (metrics, scores, state.model.state_dict())
+    finally:
+        torch.use_deterministic_algorithms(deterministic)
+    (m0, s0, p0), (m1, s1, p1) = runs[False], runs[True]
+    assert m0.keys() == m1.keys() and all(torch.equal(m0[k], m1[k]) for k in m0)
+    assert s0 == s1 and s0
+    assert all(torch.equal(p0[k], p1[k]) for k in p0)
 
 
 def test_make_eval_step_is_compute_losses_without_gradients():

@@ -151,7 +151,8 @@ def test_import_leaves_jax_out():
         "('jax', 'jaxlib', 'flax', 'splatter360_tpu', 'tensorboard', 'tensorboardX'))\n"
         "assert not bad, bad\n"
         "new = ['train.trainer', 'utils.step_tracker', 'utils.tb_events', 'models.visualizer',\n"
-        "       'models.epipolar', 'ops.composite_scan']\n"
+        "       'models.epipolar', 'ops.composite_scan', 'models.dino',\n"
+        "       'utils.torch_convert']\n"
         "missing = [m for m in new if 'splatter360_tpu_torch.' + m not in sys.modules]\n"
         "assert not missing, missing\n"
     )
