@@ -85,6 +85,17 @@ Phases (any failure ends in a non-zero exit and no result line):
      encoder's ms with and without the branch and the ViT's own; (c) the
      CLI, mode=train (checkpointing.pretrained_mono) then mode=test; (d)
      the tiny f32 mono encoder and train step, the card against the CPU;
+  3p. the UniMatch backbone warm start and trajectory videos: (a)
+     hm3d.yaml's model in bf16 warm-started from a seeded file in gmdepth's
+     layout (every key of tests/data/unimatch_state_dict_keys.json into both
+     backbones, bit for bit), a served request and 2 ERP train steps
+     through the fused pair; (b) the CLI, mode=train with
+     checkpointing.pretrained_backbone, then mode=test with
+     test.save_video: 60 fused forward launches a scene for its video,
+     mp4 or PNG frames written; (c) interpolate, wobble and spin through
+     Evaluator.render_video on (a)'s Gaussians, 60 launches each, frame 0
+     bit-equal to a direct render, a spin frame's kernel bit-equal to its
+     plain version, ms a frame and a video;
   4. time each kernel and its plain version with CUDA events, the unfused
      path's pack and scatter apart, the fused kernels on the 3-view inputs,
      and the serving render stage by stage; both backward kernels at their
@@ -98,9 +109,9 @@ Phases (any failure ends in a non-zero exit and no result line):
      inputs (2e, 3h, 3i) and the forwards on all the train steps' inputs.
 It prints a JSON line of the CLI evaluation (3l), one of the CLI training
 (3m), one of the options and the scan compositor (3n), one of the mono
-branch (3o), one of per-kernel
+branch (3o), one of the warm start and the videos (3p), one of per-kernel
 numbers (the ERP path's, the cube path's under cube_*, and the launches of
-3m's runs), the nvidia-smi line, and as its last
+3m's, 3n's, 3o's and 3p's runs), the nvidia-smi line, and as its last
 line
 {"ok": true, "device": {...}}.
 """
@@ -226,6 +237,11 @@ SMOKE_STEPS = 2
 # 18 a block (2 norms, query/key/value/out, the MLP: 2 each; ls1, ls2)
 MONO_GRID = FACE // 14
 MONO_LEAVES = 5 + 18 * 12
+# phase 3p: the real gmdepth key -> shape map (hm3d.yaml's backbone, d_feature
+# 128, downscale 8), every key of which a warm start copies into both
+# backbones; the frames of a trajectory video (Evaluator.render_video)
+UNIMATCH_KEYS = CONFIG.parent.parent / "tests" / "data" / "unimatch_state_dict_keys.json"
+VIDEO_FRAMES = 60
 
 failures: list[str] = []
 
@@ -1680,7 +1696,8 @@ def phase_cli_eval(seed):
     from splatter360_tpu_torch.train import checkpoint as ckpt
     from splatter360_tpu_torch.train.state import create_train_state
 
-    have = {m: importlib.util.find_spec(m) is not None for m in ("yaml", "imageio", "matplotlib")}
+    have = {m: importlib.util.find_spec(m) is not None
+            for m in ("yaml", "imageio", "matplotlib", "cv2", "tensorstore")}
     have["native loader (g++, zstd)"] = native.available()
     print(f"available: {have}" + ("" if native.available() else
                                   f"\n  loader: {native.build_error()}"), flush=True)
@@ -2296,6 +2313,26 @@ def dinov2_state(seed: int, dim: int = 384, depth: int = 12, grid: int = 37) -> 
     return sd
 
 
+def unimatch_state(seed: int) -> dict:
+    """A seeded state dict in UniMatch gmdepth's layout: the 115 keys and
+    shapes of UNIMATCH_KEYS (CNNEncoder(output_dim=128) and a 6-layer d=128
+    transformer). Conv and linear weights N(0, 1/fan_in), so no square
+    kernel is symmetric; LayerNorm weights 1 + N(0, 0.2) and every bias
+    N(0, 0.1), so a scale swapped with its bias shows."""
+    gen = torch.Generator().manual_seed(seed)
+    sd = {}
+    for key, shape in json.loads(UNIMATCH_KEYS.read_text()).items():
+        x = torch.randn(shape, generator=gen)
+        if len(shape) > 1:
+            x = x / math.sqrt(math.prod(shape[1:]))
+        elif key.endswith(("norm1.weight", "norm2.weight")):
+            x = 1.0 + 0.2 * x
+        else:
+            x = 0.1 * x
+        sd[key] = x
+    return sd
+
+
 def vit_ms(model, image, iters=5):
     """The mono ViT alone, bf16 as apply_encoder runs it: CUDA-event ms of
     one call on the context panoramas' normalised cube faces resized to a
@@ -2531,6 +2568,250 @@ def vit_card_vs_cpu(dino, img):
         if not bool(torch.isfinite(b).all()):
             raise AssertionError(f"non-finite ViT output on the card ({name})")
     return out
+
+
+@phase("3p (a). the UniMatch backbone warm start at HM3D width, bf16: a served request and 2 "
+       "ERP train steps")
+def phase_backbone(seed, root: Path):
+    """hm3d.yaml's model in bf16 warm-started from a seeded file in gmdepth's
+    layout (unimatch_state in {"model": ...}): 2 x 115 parameters copied,
+    both backbones' parameters on the card the file's bit for bit; then one
+    request through the serving entry points (encode, 4 target ERP views: 1
+    fused forward launch) and 2 ERP train steps at B = 1 (fused forward and
+    backward), the launches counted over that run. Returns the numbers, and
+    the request and its Gaussians for phase 3p (c)."""
+    from splatter360_tpu_torch.models.encoder import HM3D
+    from splatter360_tpu_torch.ops.cuda import composite as comp
+    from splatter360_tpu_torch.serve import encode, render_erp_views
+    from splatter360_tpu_torch.train.checkpoint import warm_start_backbones
+    from splatter360_tpu_torch.train.state import TrainConfig, create_train_state, train_step
+    from splatter360_tpu_torch.utils.torch_convert import convert_unimatch_backbone
+
+    sd = unimatch_state(seed + 60)
+    path = root / "gmdepth.pth"
+    torch.save({"model": sd}, path)
+    want = 2 * len(json.loads(UNIMATCH_KEYS.read_text()))
+    torch.cuda.empty_cache()
+    state = create_train_state(HM3D, TrainConfig(supervision="erp"), seed=seed, device="cuda")
+    n = warm_start_backbones(state.model, path)
+    print(f"  warm-started both backbones from {path.name} ({n} leaves; the key map gives "
+          f"{want})", flush=True)
+    if n != want:
+        raise AssertionError(f"warm start copied {n} leaves, expected {want}")
+    donor = convert_unimatch_backbone(sd)
+    for name in ("backbone_cube", "backbone_erp"):
+        params = dict(getattr(state.model, name).named_parameters())
+        differ = [k for k, v in donor.items() if not torch.equal(params[k].cpu(), v)]
+        if differ:
+            raise AssertionError(f"{name} is not the file's bit for bit: {differ}")
+    batch, r = option_request(torch.Generator(device="cuda").manual_seed(seed + 61))
+    args = (r["image"], r["ctx_pose"], r["near"], r["far"])
+
+    encode(state.model, *args)  # warm-up (cuDNN autotuning)
+    for k in comp.launch_counts:
+        comp.launch_counts[k] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gaussians, depth_map = encode(state.model, *args)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    views = render_erp_views(gaussians, r["tgt_pose"], r["tgt_near"], r["tgt_far"], (H, W),
+                             render_depth=True)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    check_outputs(gaussians, depth_map, views, r)
+    del depth_map, views
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = []
+    for _ in range(2):
+        t3 = time.perf_counter()
+        metrics = train_step(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t3))
+        vals = {k: float(v) for k, v in metrics.items()}
+        if not all(math.isfinite(v) for v in vals.values()):
+            raise AssertionError(f"non-finite metrics {vals}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = dict(comp.launch_counts)
+    expect = {k: 3 if k == comp.KERNEL_NAME else 2 if k == comp.BWD_KERNEL_NAME else 0
+              for k in launches}
+    if launches != expect:
+        raise AssertionError(f"launches {launches}, expected {expect}")
+    if not all(bool(torch.isfinite(p).all()) for p in state.model.parameters()):
+        raise AssertionError("non-finite parameters")
+    out = dict(launches=launches, leaves=n, encoder_ms=1e3 * (t1 - t0),
+               render_ms=1e3 * (t2 - t1), step_ms=step_ms, peak_gib=peak, loss=vals["loss"])
+    print(f"  warm-started model: encoder {out['encoder_ms']:.1f} ms, render {N_TGT} views "
+          f"{out['render_ms']:.1f} ms, train steps {[round(x, 1) for x in step_ms]} ms, peak "
+          f"{peak:.2f} GiB, loss {vals['loss']:.5f}; launches {launches}", flush=True)
+    del state
+    torch.cuda.empty_cache()
+    return dict(out, leaves_expected=want), gaussians, r
+
+
+def video_frames(path: Path) -> tuple[str, int]:
+    """What save_video wrote at `path`: ("mp4", frames) or ("png", frames
+    in its frame directory); ("missing", 0) for neither."""
+    if path.is_file():
+        import cv2
+
+        cap = cv2.VideoCapture(str(path))
+        n = 0
+        while cap.read()[0]:
+            n += 1
+        cap.release()
+        return "mp4", n
+    frames = path.with_suffix("")
+    if frames.is_dir():
+        return "png", len(list(frames.glob("*.png")))
+    return "missing", 0
+
+
+@phase("3p (b). the CLI with hm3d.yaml + checkpointing.pretrained_backbone: mode=train 2 steps, "
+       "then mode=test with test.save_video")
+def phase_backbone_cli(seed, root: Path):
+    """mode=train on 2 seeded 512x1024 train scenes (bf16, B = 1, no
+    validation, 2 steps) warm-started from phase 3p (a)'s file (it prints
+    the same count), then mode=test of its step-2 checkpoint on 2 test
+    scenes with test.save_video and test.eval_depth: the fused forward
+    launched once a scene for the scores and VIDEO_FRAMES times a scene for
+    the video, and each scene's interpolate and interpolate_depth videos
+    written with VIDEO_FRAMES frames."""
+    from splatter360_tpu_torch.ops.cuda import composite as comp
+    from splatter360_tpu_torch.train import checkpoint as ckpt
+
+    fwd, bwd = comp.KERNEL_NAME, comp.BWD_KERNEL_NAME
+    unfused = (comp.UNFUSED_KERNEL_NAME, comp.UNFUSED_BWD_KERNEL_NAME)
+    path = root / "gmdepth.pth"
+    want = 2 * len(json.loads(UNIMATCH_KEYS.read_text()))
+    data, out, test_out = root / "data", root / "run", root / "test"
+    cli_scenes(data, seed + 62, "train", 2, TRAIN_FRAMES)
+    cli_scenes(data, seed + 63, "test", 2, CLI_FRAMES)
+    tr = train_run(
+        "(b) mode=train, pretrained_backbone, bf16, 2 steps",
+        [str(CONFIG), "mode=train", f"checkpointing.pretrained_backbone={path}",
+         f"dataset.roots=[{data}]", f"output_dir={out}", "trainer.batch_size=1",
+         "trainer.max_steps=2", "trainer.num_sanity_val_steps=0", "trainer.val_check_interval=0",
+         "trainer.print_log_every_n_steps=1"])
+    line = f"warm-started both backbones from pretrained_backbone ({want} leaves)"
+    if line not in tr["printed"]:
+        raise AssertionError(f"(b) mode=train did not print {line!r}")
+    if (tr["launches"][fwd], tr["launches"][bwd]) != (2, 2) or any(tr["launches"][k]
+                                                                   for k in unfused):
+        raise AssertionError(f"(b) mode=train: launches {tr['launches']}, expected 2 and 2")
+    check_train_out("(b) mode=train", out, [2], [], [1, 2])
+    saved = torch.load(out / "checkpoints" / "2" / ckpt.FILE, map_location="cpu",
+                       weights_only=True)["params"]
+    ev = cli_run("(b) mode=test of its checkpoint with test.save_video",
+                 [str(CONFIG), "mode=test", f"dataset.roots=[{data}]",
+                  f"checkpointing.load={out / 'checkpoints'}", "test.eval_depth=true",
+                  "test.save_video=true", "test.eval_time_skip_steps=1",
+                  f"test.output_path={test_out}"], fwd, saved)
+    scenes = sorted(p.name for p in test_out.iterdir() if p.is_dir())
+    expect = len(scenes) * (1 + VIDEO_FRAMES)
+    if ev["launches"][fwd] != expect or any(ev["launches"][k] for k in unfused):
+        raise AssertionError(f"(b) mode=test: launches {ev['launches']}, expected {expect} "
+                             f"fused forward launches over {len(scenes)} scenes")
+    written = {}
+    for scene in scenes:
+        for stem in ("interpolate", "interpolate_depth"):
+            kind, n = video_frames(test_out / scene / f"{stem}.mp4")
+            written[f"{scene}/{stem}"] = (kind, n)
+            if n != VIDEO_FRAMES:
+                raise AssertionError(f"(b) {scene}/{stem}: {kind} with {n} frames, expected "
+                                     f"{VIDEO_FRAMES}")
+    print(f"  (b) videos written: {written}", flush=True)
+    tr.pop("printed", None)
+    return dict(train=tr, test=ev, videos=written,
+                launches={k: tr["launches"][k] + ev["launches"][k] for k in tr["launches"]})
+
+
+@phase("3p (c). trajectory videos at HM3D width: interpolate, wobble and spin through "
+       "Evaluator.render_video")
+def phase_videos(seed, root: Path, gaussians, r):
+    """The three trajectories of VIDEO_FRAMES frames about phase 3p (a)'s
+    request, through Evaluator.render_video on its Gaussians (N =
+    1,048,576): VIDEO_FRAMES fused forward launches each, every frame
+    finite and at least 0 (the share above 1, which the writes clip, is
+    reported); interpolate's frame 0 bit-equal to
+    render_erp_views at the first context pose; one spin frame's forward
+    kernel bit-equal to its plain version at the same span. Times: each
+    video (host clock, its PNG or mp4 writes included) and one frame's
+    render_erp_views (CUDA events)."""
+    from splatter360_tpu_torch.config import load_config
+    from splatter360_tpu_torch.geometry.transforms import trajectory_spin
+    from splatter360_tpu_torch.models.decoder import render_erp_views
+    from splatter360_tpu_torch.ops.cuda import composite as comp
+    from splatter360_tpu_torch.train import evaluator as ev_mod
+
+    cfg = load_config(str(CONFIG), [f"dataset.image_shape=[{H},{W}]",
+                                    f"test.output_path={root / 'videos'}"])
+    evaluator = ev_mod.Evaluator(cfg, None, device="cuda")
+    ctx = r["ctx_pose"][0]
+    near, far = float(r["tgt_near"][0, 0]), float(r["tgt_far"][0, 0])
+    nf = [torch.full((1, 1), v, device="cuda") for v in (near, far)]
+    frames, save = {}, ev_mod.save_video
+
+    def keep(images, path, fps=30):
+        frames[Path(path).name] = images
+        save(images, path, fps)
+
+    out = {}
+    launches = {k: 0 for k in comp.launch_counts}
+    ev_mod.save_video = keep
+    try:
+        for traj in ("interpolate", "wobble", "spin"):
+            for k in comp.launch_counts:
+                comp.launch_counts[k] = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            evaluator.render_video(gaussians, ctx, near, far, root / "videos" / f"{traj}.mp4",
+                                   trajectory=traj)
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t0)
+            got = dict(comp.launch_counts)
+            for k, v in got.items():
+                launches[k] += v
+            expect = {k: VIDEO_FRAMES if k == comp.KERNEL_NAME else 0 for k in got}
+            if got != expect:
+                raise AssertionError(f"{traj}: launches {got}, expected {expect}")
+            images = np.stack(frames[f"{traj}.mp4"])
+            if images.shape != (VIDEO_FRAMES, H, W, 3) or not np.isfinite(images).all() \
+                    or images.min() < 0.0:
+                raise AssertionError(f"{traj}: frames {images.shape}, min {images.min()}, "
+                                     f"finite {np.isfinite(images).all()}")
+            kind, n = video_frames(root / "videos" / f"{traj}.mp4")
+            if n != VIDEO_FRAMES:
+                raise AssertionError(f"{traj}: {kind} with {n} frames written")
+            # colours are clamped at 0 only (the 3DGS colour model, as in JAX);
+            # save_video clips what lies above 1
+            over = float((images > 1.0).mean())
+            out[traj] = dict(video_ms=wall, written=kind, frames=n, max=float(images.max()),
+                             share_over_1=over)
+            print(f"  {traj}: {VIDEO_FRAMES} frames in {wall:.1f} ms ({wall / VIDEO_FRAMES:.1f} "
+                  f"ms a frame, writes included; {kind}, {n} frames), values in "
+                  f"[{images.min():.4f}, {images.max():.4f}], {100 * over:.4f}% above 1; "
+                  f"launches {got}", flush=True)
+    finally:
+        ev_mod.save_video = save
+    direct = render_erp_views(gaussians, ctx[0][None, None], *nf, (H, W))
+    first = direct.color[0, 0].cpu().numpy()
+    if not np.array_equal(first, frames["interpolate.mp4"][0]):
+        raise AssertionError("interpolate's frame 0 differs from render_erp_views at the first "
+                             "context pose")
+    i = VIDEO_FRAMES // 3
+    pose = trajectory_spin(ctx[0], float(np.linspace(0, 1, VIDEO_FRAMES)[i]))
+    inp = target_inputs(gaussians, pose[None])
+    err, stats = compare_kernel_plain(inp, f"spin frame {i}", exact=True)
+    kernel_ms = time_cuda(lambda: fwd_calls(inp)[0](), 10)
+    bound, by, _, _ = bound_ms(inp, stats)
+    frame_ms = time_cuda(lambda: render_erp_views(gaussians, pose[None, None], *nf, (H, W)), 10)
+    print(f"  interpolate's frame 0 bit-equal to the direct render; spin frame {i}: kernel "
+          f"bit-equal to its plain version, kernel {kernel_ms:.3f} ms (bound {bound:.4f} ms by "
+          f"{by}; plain {stats['plain_ms']:.1f} ms); one frame's render_erp_views "
+          f"{frame_ms:.3f} ms (CUDA events)", flush=True)
+    return dict(trajectories=out, launches=launches, frame_ms=frame_ms, err=err,
+                kernel_ms=kernel_ms, bound_ms=bound, bound_by=by, plain_ms=stats["plain_ms"])
 
 
 def scan_gpu_vs_cpu(attrs, assignments, shape, wrap_x, label):
@@ -2879,6 +3160,17 @@ def main():
         shutil.rmtree(mono_root, ignore_errors=True)
     mono_s = time.perf_counter() - t_mono
     print(f"phase 3o took {mono_s:.1f} s", flush=True)
+    t_backbone = time.perf_counter()
+    backbone_root = Path(tempfile.mkdtemp(prefix="splat360_backbone_"))
+    try:
+        backbone, served, request = phase_backbone(args.seed, backbone_root) or ({}, None, None)
+        backbone_cli = phase_backbone_cli(args.seed, backbone_root) or {}
+        videos = phase_videos(args.seed, backbone_root, served, request) or {}
+        del served, request
+    finally:
+        shutil.rmtree(backbone_root, ignore_errors=True)
+    backbone_s = time.perf_counter() - t_backbone
+    print(f"phase 3p took {backbone_s:.1f} s", flush=True)
     rows = phase_timing(check, serve, bcheck, train, ucheck, ubcheck, serve3, train3, pin,
                         cserve, ctrain, cremat) or {}
     # each path's own kernels, counted over its own run
@@ -2905,7 +3197,10 @@ def main():
               for g, kw in OPTION_GROUPS.items()),
             ("CLI with biproj, epipolar and 2 Gaussians a pixel", options_cli or None, unfused),
             ("mono branch at HM3D width", mono or None, fused),
-            ("CLI with the mono branch", mono_cli or None, fused)):
+            ("CLI with the mono branch", mono_cli or None, fused),
+            ("UniMatch warm start at HM3D width", backbone or None, fused),
+            ("CLI with pretrained_backbone and save_video", backbone_cli or None, fused),
+            ("trajectory videos at HM3D width", videos or None, fused[:1])):
         if res is None:
             failures.append(f"{label} run missing")
         elif min(res["launches"].get(k, 0) for k in names) == 0:
@@ -2922,7 +3217,12 @@ def main():
         the unfused pair); option_launches over phase 3n (a)'s runs of every
         option group and, for the unfused pair, gpp2_ms at its gpp = 2
         step's inputs; mono_launches over phase 3o's runs (the mono
-        branch's request and steps, and its CLI runs)."""
+        branch's request and steps, and its CLI runs); backbone_launches
+        over phase 3p (a-b)'s (the warm-started model's request and steps,
+        the CLI's training and its mode=test with videos); video_launches
+        over phase 3p (c)'s three videos and, for the fused forward,
+        video_frame_ms, its bound and its plain version's ms on one spin
+        frame."""
         ctrain = cli_train["b" if "unfused" in name else "a"]
         return dict(name=name, route="cuda", source=f"splatter360_tpu_torch/csrc/{source}",
                     replaces=f"splatter360_tpu/ops/pallas/composite.py:{replaces}",
@@ -2935,6 +3235,13 @@ def main():
                     cli_train_launches=ctrain["launches"][name],
                     option_launches=sum(options[g]["launches"][name] for g in OPTION_GROUPS),
                     mono_launches=mono["launches"][name] + mono_cli["launches"][name],
+                    backbone_launches=backbone["launches"][name]
+                    + backbone_cli["launches"][name],
+                    video_launches=videos["launches"][name],
+                    **({"video_frame_ms": videos["kernel_ms"],
+                        "video_frame_bound_ms": videos["bound_ms"],
+                        "video_frame_plain_ms": videos["plain_ms"]}
+                       if name == "composite_forward_fused" else {}),
                     **({"gpp2_ms": options["gpp2"][
                         "bwd_kernel_ms" if "backward" in name else "fwd_kernel_ms"]}
                        if "unfused" in name else {}))
@@ -2971,6 +3278,9 @@ def main():
                                       seconds=options_s), "card": smi}))
     print(json.dumps({"mono": dict(hm3d=mono, cli=mono_cli, small_gpu_vs_cpu=mono_small,
                                    seconds=mono_s), "card": smi}))
+    print(json.dumps({"backbone_and_videos": dict(hm3d=backbone, cli=backbone_cli,
+                                                  videos=videos, seconds=backbone_s),
+                      "card": smi}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

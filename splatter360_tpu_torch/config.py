@@ -33,9 +33,9 @@ class CheckpointingConfig:
     load: Optional[str] = None             # full resume path (or wandb://run[:vN])
     pretrained_model: Optional[str] = None  # weights-only warm start (training)
     # local torch checkpoints for the reference recipe's warm starts: UniMatch
-    # gmdepth weights into both multiview backbones, and DINOv2 ViT weights
-    # for the mono branch (model.add_mono_feat, train/checkpoint.warm_start_mono);
-    # the UniMatch loader is not ported
+    # gmdepth weights into both multiview backbones
+    # (train/checkpoint.warm_start_backbones), and DINOv2 ViT weights for the
+    # mono branch (model.add_mono_feat, train/checkpoint.warm_start_mono)
     pretrained_backbone: Optional[str] = None
     pretrained_mono: Optional[str] = None
     every_n_train_steps: int = 20_000
@@ -62,7 +62,8 @@ class TestConfig:
     compute_scores: bool = True
     eval_time_skip_steps: int = 5
     save_image: bool = True
-    save_video: bool = False  # videos are not ported (check_ported)
+    # a 60-frame video of each scene (train/evaluator.Evaluator.render_video)
+    save_video: bool = False
     video_trajectory: str = "interpolate"  # interpolate | wobble | spin
     eval_depth: bool = False
     # score the v*6 rendered cube faces (the reference's protocol) instead of
@@ -135,12 +136,6 @@ def check_ported(cfg: RootConfig) -> None:
     """Raise NotImplementedError for a value this port does not run."""
     encoder.check_ported(cfg.model)
     state.check_ported(cfg.train)
-    if cfg.test.save_video:
-        raise NotImplementedError("test.save_video=True (trajectory videos) is not ported "
-                                  "(ROADMAP.md Queue 1 item 2)")
-    if cfg.checkpointing.pretrained_backbone:
-        raise NotImplementedError("checkpointing.pretrained_backbone (the UniMatch weights "
-                                  "loader) is not ported (ROADMAP.md Queue 1 item 2)")
 
 
 def load_config(path: Optional[str] = None, overrides: Optional[list] = None) -> RootConfig:

@@ -1,10 +1,14 @@
 """Rigid transforms, quaternions and Gaussian covariance building (sym6 form).
 
 Counterpart of splatter360_tpu/geometry/transforms.py; sym6 = (s00, s01, s02,
-s11, s12, s22), the upper triangle of a symmetric 3x3 covariance.
+s11, s12, s22), the upper triangle of a symmetric 3x3 covariance. The video
+trajectories: interpolate_pose_6d between two poses, trajectory_wobble and
+trajectory_spin about one.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -122,3 +126,31 @@ def interpolate_pose_6d(pose_a: torch.Tensor, pose_b: torch.Tensor, t) -> torch.
     bottom = torch.zeros_like(top[..., :1, :])
     bottom[..., 3] = 1.0
     return torch.cat([top, bottom], dim=-2)
+
+
+def trajectory_wobble(pose: torch.Tensor, radius, t) -> torch.Tensor:
+    """A circular wobble about a [4, 4] c2w pose: the camera origin traces a
+    circle of `radius` in its local xy plane (dx = r sin 2 pi t, dy = -r cos
+    2 pi t + r), the orientation fixed; t in [0, 1] is one loop, a scalar or
+    any shape (the poses come out [*t.shape, 4, 4])."""
+    t = torch.as_tensor(t, dtype=pose.dtype, device=pose.device)
+    dx = radius * torch.sin(2.0 * math.pi * t)
+    dy = -radius * torch.cos(2.0 * math.pi * t) + radius
+    delta = torch.stack([dx, dy, torch.zeros_like(dx)], dim=-1)
+    out = pose.expand(*t.shape, 4, 4).clone()
+    out[..., :3, 3] += torch.einsum("ij,...j->...i", pose[:3, :3], delta)
+    return out
+
+
+def trajectory_spin(pose: torch.Tensor, t) -> torch.Tensor:
+    """A yaw in place: the [4, 4] c2w pose turned about its local up (y)
+    axis by 2 pi t, the origin fixed; t a scalar or any shape."""
+    t = torch.as_tensor(t, dtype=pose.dtype, device=pose.device)
+    ang = 2.0 * math.pi * t
+    c, s = torch.cos(ang), torch.sin(ang)
+    z, o = torch.zeros_like(c), torch.ones_like(c)
+    rot_y = torch.stack([torch.stack([c, z, s], dim=-1), torch.stack([z, o, z], dim=-1),
+                         torch.stack([-s, z, c], dim=-1)], dim=-2)
+    out = pose.expand(*t.shape, 4, 4).clone()
+    out[..., :3, :3] = torch.einsum("ij,...jk->...ik", pose[:3, :3], rot_y)
+    return out

@@ -15,9 +15,10 @@ ViT's leaves too (its gradients are 0 by stop_gradient), so a reader of
 JAX checkpoints must drop those. Orbax checkpoints written by the JAX
 package are not read here (that needs orbax; ROADMAP.md Queue 1 item 2).
 
-Partial warm starts from torch weight files, as the JAX package's: the
-mono branch's DINOv2 ViT (`warm_start_mono`, checkpointing.pretrained_mono).
-The UniMatch backbones' (pretrained_backbone) is not ported yet.
+Partial warm starts from torch weight files, as the JAX package's: both
+multiview backbones from a UniMatch gmdepth file (`warm_start_backbones`,
+checkpointing.pretrained_backbone) and the mono branch's DINOv2 ViT
+(`warm_start_mono`, checkpointing.pretrained_mono).
 """
 
 from __future__ import annotations
@@ -29,7 +30,8 @@ from typing import Optional
 
 import torch
 
-from ..utils.torch_convert import convert_dinov2, load_torch_state_dict
+from ..utils.torch_convert import (convert_dinov2, convert_unimatch_backbone,
+                                   load_torch_state_dict)
 from .state import TrainState
 
 FILE = "checkpoint.pt"
@@ -107,6 +109,24 @@ def partial_warm_start(module: torch.nn.Module, donor) -> int:
             if p is not None and tuple(p.shape) == tuple(value.shape):
                 p.copy_(value)
                 n += 1
+    return n
+
+
+def warm_start_backbones(model: torch.nn.Module, path, num_layers: int = 6) -> int:
+    """The reference's UniMatch warm start: the gmdepth torch weight file at
+    `path` (utils/torch_convert.convert_unimatch_backbone) into BOTH
+    multiview backbones, backbone_cube and backbone_erp, where the model has
+    them. Returns the number of parameters copied over both; ValueError
+    when none matched."""
+    donor = convert_unimatch_backbone(load_torch_state_dict(path), num_layers)
+    n = sum(partial_warm_start(backbone, donor)
+            for backbone in (getattr(model, "backbone_cube", None),
+                             getattr(model, "backbone_erp", None))
+            if backbone is not None)
+    if n == 0:
+        raise ValueError(f"checkpointing.pretrained_backbone={str(path)!r}: 0 parameter leaves "
+                         f"matched the model (wrong checkpoint, or the model has no "
+                         f"backbone_cube/backbone_erp modules)")
     return n
 
 

@@ -11,12 +11,18 @@ finalize writes scores_all_avg.json, scores_<metric>_all.json,
 mse_dict.json, benchmark.json (timings past the first
 `eval_time_skip_steps`) and peak_memory.json.
 
+With test.save_video, each scene also gets a video of
+`test.video_trajectory` (`render_video`: 60 frames, one render call a
+frame) as <scene>/<trajectory>.mp4, and with eval_depth its depth video.
+Unlike JAX's Evaluator, which prints a warning for any failure of the
+export, only a failed write of the files is printed and skipped: a render
+failure propagates.
+
 The metrics are computed on the device; only what is written moves to the
-host. Videos (`render_video`) are not ported (ROADMAP.md Queue 1 item 2);
-band-sharded decoding (`shard_render`) acts as off on one device, as in
-JAX, and across cards is not ported (item 4). The state's encoder is the
-one to score: with add_mono_feat its ViT comes from the checkpoint, and no
-warm start is made here (nor in JAX's Evaluator).
+host. Band-sharded decoding (`shard_render`) acts as off on one device, as
+in JAX, and across cards is not ported (ROADMAP.md Queue 1 item 4). The
+state's encoder is the one to score: with add_mono_feat its ViT comes from
+the checkpoint, and no warm start is made here (nor in JAX's Evaluator).
 """
 
 from __future__ import annotations
@@ -30,11 +36,12 @@ import torch
 from ..data.dataset import SceneDataset, batch_examples
 from ..device import resolve_device, set_f32_policy
 from ..geometry.cubemap import erp_to_cube
+from ..geometry.transforms import interpolate_pose_6d, trajectory_spin, trajectory_wobble
 from ..models import decoder
 from ..models.encoder import apply_encoder
 from ..serve import EVAL_GLOBAL_STEP, context_cubes
 from ..utils.benchmarker import Benchmarker
-from ..utils.image_io import apply_depth_colormap, hcat, save_image
+from ..utils.image_io import apply_depth_colormap, hcat, save_image, save_video
 from .metrics import compute_depth_metrics, compute_psnr, compute_ssim
 
 # the cube faces scored for depth: F R B L D (the top face U is excluded)
@@ -120,8 +127,56 @@ class Evaluator:
 
             if cfg.test.save_image:
                 self._save_images(scene, pred.cpu().numpy(), gt.cpu().numpy(), out)
+            if cfg.test.save_video:
+                traj = cfg.test.video_trajectory
+                self.render_video(gaussians, ctx["extrinsics_sphere"][0],
+                                  float(tgt["near"][0, 0]), float(tgt["far"][0, 0]),
+                                  self.out / scene / f"{traj}.mp4", trajectory=traj,
+                                  with_depth=cfg.test.eval_depth)
         self.finalize(scores, skip=cfg.test.eval_time_skip_steps)
         return scores
+
+    @torch.no_grad()
+    def render_video(self, gaussians, ctx_extr, near: float, far: float, path, n_frames: int = 60,
+                     trajectory: str = "interpolate", with_depth: bool = False) -> None:
+        """A video of `n_frames` ERP frames at t = linspace(0, 1, n_frames)
+        along `trajectory`: "interpolate" from the first context pose
+        (ctx_extr [V, 4, 4]) to the last (interpolate_pose_6d), "wobble" a
+        circle about the first of a quarter of the baseline between the
+        first and the last, "spin" a yaw about the first; any other name
+        interpolates. Each frame is its own render call of one view, as in
+        JAX. With `with_depth`, also `<stem>_depth.mp4`: depth / max(alpha,
+        1e-6), colour-mapped between the whole video's least and greatest
+        depth. A failed write is printed and skipped."""
+        shape = tuple(self.cfg.dataset.image_shape)
+        nf = [torch.full((1, 1), v, device=ctx_extr.device) for v in (near, far)]
+        first, last = ctx_extr[0], ctx_extr[-1]
+        radius = 0.25 * float(np.linalg.norm((last[:3, 3] - first[:3, 3]).cpu().numpy()))
+        frames, depths = [], []
+        for t in np.linspace(0, 1, n_frames):
+            if trajectory == "wobble":
+                pose = trajectory_wobble(first, radius, float(t))
+            elif trajectory == "spin":
+                pose = trajectory_spin(first, float(t))
+            else:
+                pose = interpolate_pose_6d(first, last, float(t))
+            out = decoder.render_erp_views(gaussians, pose[None, None], *nf, shape,
+                                           render_depth=with_depth,
+                                           backend=self.cfg.train.render_backend)
+            frames.append(out.color[0, 0].cpu().numpy())
+            if with_depth:
+                depths.append(out.depth[0, 0].cpu().numpy()
+                              / np.maximum(out.alpha[0, 0].cpu().numpy(), 1e-6))
+        path = Path(path)
+        try:
+            save_video(frames, path)
+            if with_depth:
+                lo = min(float(d.min()) for d in depths)
+                hi = max(float(d.max()) for d in depths)
+                save_video([apply_depth_colormap(d, lo, hi) for d in depths],
+                           path.with_name(path.stem + "_depth.mp4"))
+        except OSError as e:
+            print(f"warning: writing the video {path} failed: {e}")
 
     def _save_images(self, scene: str, pred: np.ndarray, gt: np.ndarray, erp) -> None:
         """The scored views or faces, their ground truth and error maps, a

@@ -13,8 +13,11 @@ JAX). The first batch is drawn before the state is built; with
 `checkpointing.resume` the state is restored from <output_dir>/checkpoints
 (the data stream starts again from its seed: data is not checkpointed), and
 at step 0 `checkpointing.pretrained_model` is a weights-only warm start,
-then `checkpointing.pretrained_mono` loads a DINOv2 weight file into the
-frozen mono ViT (add_mono_feat; checkpoint.warm_start_mono).
+then `checkpointing.pretrained_backbone` loads a UniMatch gmdepth weight
+file into both multiview backbones (checkpoint.warm_start_backbones), then
+`checkpointing.pretrained_mono` a DINOv2 weight file into the frozen mono
+ViT (add_mono_feat; checkpoint.warm_start_mono). A resumed run (step > 0)
+takes none of them.
 Each step is train.state.train_step. Metrics reach the host only at a log
 step (`step % print_log_every_n_steps == 0 or step <= 1`): printed and
 written as `train/<metric>` scalars to <output_dir>/tb (utils/tb_events.py).
@@ -252,6 +255,10 @@ class Trainer:
                 ckpt.resolve_checkpoint_uri(cfg.checkpointing.pretrained_model), state)
             if ok:
                 print("warm-started weights from pretrained_model")
+        if cfg.checkpointing.pretrained_backbone and state.step == 0:
+            n = ckpt.warm_start_backbones(
+                state.model, ckpt.resolve_checkpoint_uri(cfg.checkpointing.pretrained_backbone))
+            print(f"warm-started both backbones from pretrained_backbone ({n} leaves)")
         if cfg.checkpointing.pretrained_mono and state.step == 0:
             n = ckpt.warm_start_mono(
                 state.model, ckpt.resolve_checkpoint_uri(cfg.checkpointing.pretrained_mono))

@@ -2,12 +2,14 @@
 parameters.
 
 Counterpart of splatter360_tpu/utils/torch_convert.py (`load_torch_state_dict`,
-`convert_dinov2`). A DINOv2 state dict is already in PyTorch's layouts, so
-its tensors map onto the port's module names one to one; only the CLS and
-mask tokens are dropped and pos_embed is resampled to the model's token
-grid. (JAX splits qkv into per-head DenseGeneral kernels; the port's
-query/key/value weights are its [dim, dim] thirds, heads major, which is the
-same layout flattened.)
+`convert_unimatch_backbone`, `convert_dinov2`). Both weight files are
+already in PyTorch's layouts, so their tensors map onto the port's module
+names one to one, with no transpose. A UniMatch (gmdepth) file's CNN and
+transformer keys go onto BackboneMultiview's names. Of a DINOv2 file only
+the CLS and mask tokens are dropped and pos_embed is resampled to the
+model's token grid. (JAX splits qkv into per-head DenseGeneral kernels; the
+port's query/key/value weights are its [dim, dim] thirds, heads major,
+which is the same layout flattened.)
 """
 
 from __future__ import annotations
@@ -28,6 +30,52 @@ def load_torch_state_dict(path) -> dict[str, Any]:
         if isinstance(sd, dict) and isinstance(sd.get(key), dict):
             sd = sd[key]
     return sd
+
+
+def convert_unimatch_backbone(sd: Mapping[str, torch.Tensor],
+                              num_layers: int = 6) -> dict[str, torch.Tensor]:
+    """UniMatch's backbone (CNNEncoder: backbone.conv1, backbone.layer{1,2,3}.
+    {0,1}.{conv1,conv2,downsample.0}, backbone.conv2) and its transformer's
+    `num_layers` layers (transformer.layers.{i}.{self_attn,cross_attn_ffn}.
+    {q_proj,k_proj,v_proj,merge,norm1,mlp.0,mlp.2,norm2}) -> a state dict of
+    the port's BackboneMultiview. Keys may carry a `module.` prefix; a
+    downsample conv and the FFN (mlp.0, mlp.2, norm2) are taken where the
+    file has them, every other key named here must be there (KeyError), and
+    the file's other keys (the upsampler and other heads) are ignored."""
+    def has(name):
+        return name in sd or f"module.{name}" in sd
+
+    def k(name):
+        for cand in (name, f"module.{name}"):
+            if cand in sd:
+                return sd[cand]
+        raise KeyError(name)
+
+    out = {"CNNEncoder_0.Conv_0.weight": k("backbone.conv1.weight")}
+    for stage in (1, 2, 3):  # 3 stages of 2 residual blocks: ResidualBlock_0..5
+        for sub in (0, 1):
+            src = f"backbone.layer{stage}.{sub}."
+            dst = f"CNNEncoder_0.ResidualBlock_{2 * stage - 2 + sub}."
+            out[dst + "Conv_0.weight"] = k(src + "conv1.weight")
+            out[dst + "Conv_1.weight"] = k(src + "conv2.weight")
+            if has(src + "downsample.0.weight"):
+                out[dst + "Conv_2.weight"] = k(src + "downsample.0.weight")
+                out[dst + "Conv_2.bias"] = k(src + "downsample.0.bias")
+    out["CNNEncoder_0.Conv_1.weight"] = k("backbone.conv2.weight")
+    out["CNNEncoder_0.Conv_1.bias"] = k("backbone.conv2.bias")
+    for i in range(num_layers):
+        for ours, theirs in (("self", "self_attn"), ("cross", "cross_attn_ffn")):
+            src = f"transformer.layers.{i}.{theirs}."
+            dst = f"MultiViewFeatureTransformer_0.layer{i}_{ours}."
+            for name in ("q_proj.weight", "k_proj.weight", "v_proj.weight", "merge.weight",
+                         "norm1.weight", "norm1.bias"):
+                out[dst + name] = k(src + name)
+            if has(src + "mlp.0.weight"):
+                out[dst + "Dense_0.weight"] = k(src + "mlp.0.weight")
+                out[dst + "Dense_1.weight"] = k(src + "mlp.2.weight")
+                out[dst + "norm2.weight"] = k(src + "norm2.weight")
+                out[dst + "norm2.bias"] = k(src + "norm2.bias")
+    return out
 
 
 def resample_pos_embed(pos_embed: torch.Tensor, grid: int) -> torch.Tensor:

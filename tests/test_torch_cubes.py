@@ -383,43 +383,6 @@ def test_remat_faces_same_values():
     assert_grads_close(grads[0], grads[1], LEAVES)
 
 
-@pytest.mark.parametrize("kind", ["erp", "pinhole", "ortho"])
-def test_render_dense_vs_jax(kind):
-    """The dense oracle on each camera: 1e-5 (both walk the same sorted
-    Gaussians in the same order; exp and the sums round alike)."""
-    g = scene(300, seed=12)
-    c2w = poses(1, 13)[0]
-    shape = {"erp": (16, 64), "pinhole": (24, 24), "ortho": (16, 32)}[kind]
-    kw = dict(camera_kind=kind, near=0.1, far=10.0, render_depth=True)
-    if kind == "pinhole":
-        kw["intrinsics"] = np.asarray(jcube.cube_face_intrinsics())
-    if kind == "ortho":
-        kw["ortho_extent"] = 6.0
-    ref = j_dense(*(jnp.asarray(g[k]) for k in LEAVES), jnp.asarray(c2w), shape,
-                  **{k: jnp.asarray(v) if k == "intrinsics" else v for k, v in kw.items()})
-    got = t_dense(*(tt(g[k]) for k in LEAVES), tt(c2w), shape,
-                  **{k: tt(v) if k == "intrinsics" else v for k, v in kw.items()})
-    for name in ("color", "alpha", "depth"):
-        np.testing.assert_allclose(getattr(got, name).numpy(), np.asarray(getattr(ref, name)),
-                                   atol=1e-5, err_msg=name)
-    assert float(got.alpha.max()) > 0.3
-
-
-def test_train_config_defaults_agree():
-    """TrainConfig() names the same step in both packages: cube supervision
-    at H // 2 faces, with the JAX remat default."""
-    from splatter360_tpu.train.state import TrainConfig as JTrainConfig
-    from splatter360_tpu_torch.train.state import TrainConfig
-
-    ours, theirs = TrainConfig(), JTrainConfig()
-    shared = {f.name for f in dataclasses.fields(TrainConfig)} & {
-        f.name for f in dataclasses.fields(JTrainConfig)}
-    assert {"supervision", "cube_face_size", "remat_faces"} <= shared
-    for name in shared - {"optimizer", "loss"}:
-        assert getattr(ours, name) == getattr(theirs, name), name
-    assert ours.supervision == "cubes"
-
-
 def jax_cube_step(batch):
     """One JAX make_train_step(supervision="cubes") on the tiny config of
     tests/test_torch_train.py, seeded random params, Pallas in interpret
@@ -512,6 +475,43 @@ def test_cube_train_step_vs_jax():
           [(f"{d:.2e}", k) for d, k in rows[:3]])
     for d, k in rows:
         assert d <= JUMP_TOL.get(k, GRAD_TOL), (k, d)
+
+
+@pytest.mark.parametrize("kind", ["erp", "pinhole", "ortho"])
+def test_render_dense_vs_jax(kind):
+    """The dense oracle on each camera: 1e-5 (both walk the same sorted
+    Gaussians in the same order; exp and the sums round alike)."""
+    g = scene(300, seed=12)
+    c2w = poses(1, 13)[0]
+    shape = {"erp": (16, 64), "pinhole": (24, 24), "ortho": (16, 32)}[kind]
+    kw = dict(camera_kind=kind, near=0.1, far=10.0, render_depth=True)
+    if kind == "pinhole":
+        kw["intrinsics"] = np.asarray(jcube.cube_face_intrinsics())
+    if kind == "ortho":
+        kw["ortho_extent"] = 6.0
+    ref = j_dense(*(jnp.asarray(g[k]) for k in LEAVES), jnp.asarray(c2w), shape,
+                  **{k: jnp.asarray(v) if k == "intrinsics" else v for k, v in kw.items()})
+    got = t_dense(*(tt(g[k]) for k in LEAVES), tt(c2w), shape,
+                  **{k: tt(v) if k == "intrinsics" else v for k, v in kw.items()})
+    for name in ("color", "alpha", "depth"):
+        np.testing.assert_allclose(getattr(got, name).numpy(), np.asarray(getattr(ref, name)),
+                                   atol=1e-5, err_msg=name)
+    assert float(got.alpha.max()) > 0.3
+
+
+def test_train_config_defaults_agree():
+    """TrainConfig() names the same step in both packages: cube supervision
+    at H // 2 faces, with the JAX remat default."""
+    from splatter360_tpu.train.state import TrainConfig as JTrainConfig
+    from splatter360_tpu_torch.train.state import TrainConfig
+
+    ours, theirs = TrainConfig(), JTrainConfig()
+    shared = {f.name for f in dataclasses.fields(TrainConfig)} & {
+        f.name for f in dataclasses.fields(JTrainConfig)}
+    assert {"supervision", "cube_face_size", "remat_faces"} <= shared
+    for name in shared - {"optimizer", "loss"}:
+        assert getattr(ours, name) == getattr(theirs, name), name
+    assert ours.supervision == "cubes"
 
 
 if __name__ == "__main__":

@@ -19,7 +19,8 @@ cut a heavy tile's blocks into spans of S blocks; each is held at spans of
 1 and 3 blocks and the default against the plain version at the same span.
 The pinhole cases hold all four at wrap_x=False (spans 1 and the default):
 the 6 cube faces of a scene at 96x96 (one tile column, 32 columns off the
-image) and a 64x256 view with splats across both side edges.
+image) and a 64x256 view with splats across both side edges. A frame of a
+trajectory video at HM3D width holds the fused forward bit for bit.
 """
 
 import math
@@ -129,6 +130,37 @@ def test_kernel_matches_plain_on_card(cuda_device, cut_every_tile, kind, span):
         starts, counts = asg.tile_starts.cpu().numpy(), asg.tile_counts.cpu().numpy()
         n_blocks = (starts + counts + 127) // 128 - starts // 128
         assert (got[:, 6, 0] < n_blocks).any(), "the per-tile early exit never fired"
+
+
+@pytest.mark.cuda
+def test_video_frame_kernel_matches_plain_on_card(cuda_device):
+    """One frame of a spin video (Evaluator.render_video's trajectory_spin
+    at t = 0.3 about a rotated context pose) at HM3D width: 1,048,576
+    Gaussians of random_scene's recipe into a 512x1024 ERP frame, the fused
+    forward kernel against its plain version at the default span, all 8
+    planes bit for bit."""
+    from splatter360_tpu_torch.geometry.transforms import quaternion_to_matrix, trajectory_spin
+
+    shape = (512, 1024)
+    _, *arrays = random_scene(2 * shape[0] * shape[1], seed=6)
+    means, scales, quats, sh, op = (torch.as_tensor(np.asarray(x, np.float32), device=cuda_device)
+                                    for x in arrays)
+    base = torch.eye(4, device=cuda_device)
+    base[:3, :3] = quaternion_to_matrix(torch.tensor([0.1, -0.2, 0.05, 1.0], device=cuda_device))
+    base[:3, 3] = torch.tensor([0.3, -0.1, 0.2], device=cuda_device)
+    c2w = trajectory_spin(base, 0.3)
+    proj = project_erp(means, build_covariance_sym6(scales, quats), c2w, shape, 0.1,
+                       opacities=op)
+    asg = assign_tiles(proj, shape, True)
+    attrs = tc.build_attrs(proj.mean2d, proj.conic, sh_colors(sh, means, c2w[:3, 3], 2), op,
+                           proj.depth, proj.radius)
+    args = (attrs[None], asg.gaussian_idx[None], asg.tile_starts[None], asg.tile_counts[None],
+            asg.num_tiles_y, asg.num_tiles_x, float(shape[1]), True)
+    before = tc.launch_counts[tc.KERNEL_NAME]
+    got = tc.composite_forward(*args)
+    assert tc.launch_counts[tc.KERNEL_NAME] == before + 1
+    ref = tc.composite_forward_plain(*args)
+    assert torch.equal(got, ref)
 
 
 SPANS = [1, 3, tc.BWD_SPAN]

@@ -33,7 +33,7 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_serve import rand_params
+from test_torch_serve import rand_params, zero_init
 
 torch.set_num_threads(2)
 REPO = Path(__file__).resolve().parents[1]
@@ -74,11 +74,12 @@ def write_inputs(root: Path) -> dict:
     cfg = j_load_config(str(REPO / "configs" / "synthetic_smoke.yaml"), overrides)
     batch = batch_examples([next(iter(SceneDataset(cfg.dataset, split="test", stage="test")))])
     ctx = batch["context"]
-    jstate = j_create_train_state(jax.random.PRNGKey(0), cfg.model, cfg.train,
-                                  {k: v for k, v in batch.items() if k != "scene"})
     cubes = _context_cubes(jnp.asarray(ctx["image_sphere"]), H // 2)
     params = rand_params(JEncoder(cfg.model), ctx["image_sphere"], cubes,
                          ctx["extrinsics_sphere"], ctx["near"], ctx["far"], 0, seed=3)
+    with zero_init(params):
+        jstate = j_create_train_state(jax.random.PRNGKey(0), cfg.model, cfg.train,
+                                      {k: v for k, v in batch.items() if k != "scene"})
     jstate = jstate.replace(params=params, opt_state=jstate.tx.init(params))
     jckpt.save_checkpoint(str(root / "ckpt_jax"), 1, jstate)
 
@@ -107,7 +108,7 @@ def run_both(root: Path, inputs: dict, extra: list, monkeypatch) -> tuple[Path, 
 
     config = str(REPO / "configs" / "synthetic_smoke.yaml")
     out_j, out_p = root / "out_jax", root / "out_port"
-    with monkeypatch.context() as mp:
+    with monkeypatch.context() as mp, zero_init(inputs["params"]):
         mp.setenv("SPLAT360_PALLAS_INTERPRET", "1")
         jmain.main([config, *inputs["overrides"], *extra, f"checkpointing.load={root / 'ckpt_jax'}",
                     f"test.output_path={out_j}"])

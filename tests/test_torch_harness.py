@@ -103,24 +103,20 @@ def test_overrides_and_unknown_keys():
         pconfig.load_config(None, ["model.not_a_key=1"])
 
 
-@pytest.mark.parametrize("override, item", [
-    ("test.save_video=true", "item 2"), ("checkpointing.pretrained_backbone=x.pth", "item 2")])
-def test_unported_values_raise_when_loaded(override, item):
-    with pytest.raises(NotImplementedError, match=item):
-        pconfig.load_config(str(REPO / "configs" / "hm3d.yaml"), [override])
-
-
 @pytest.mark.parametrize("override", [
     "train.optimizer.cosine_lr=false", "train.loss.lpips_weights=w.pth",
     "train.loss.depth_smoothness_weight=0.1", "train.render_backend=jax",
-    "model.add_mono_feat=true", "model.add_mono_feat=true checkpointing.pretrained_mono=x.pth"])
+    "model.add_mono_feat=true", "model.add_mono_feat=true checkpointing.pretrained_mono=x.pth",
+    "test.save_video=true", "checkpointing.pretrained_backbone=x.pth"])
 def test_values_ported_for_training_load(override):
     """The linear warm-up schedule, LPIPS weights, the depth smoothness
-    weight, the scan compositor and the mono branch with its DINOv2 warm
-    start load as in the JAX package (tests/test_torch_trainer.py trains
-    with the first three against JAX, tests/test_torch_scan.py holds the
-    scan compositor to composite_jax, tests/test_torch_mono.py the mono
-    branch and its loader)."""
+    weight, the scan compositor, the mono branch with its DINOv2 warm
+    start, trajectory videos and the UniMatch backbone warm start load as
+    in the JAX package (tests/test_torch_trainer.py trains with the first
+    three against JAX, tests/test_torch_scan.py holds the scan compositor
+    to composite_jax, tests/test_torch_mono.py the mono branch and its
+    loader, tests/test_torch_video.py the videos, tests/test_torch_unimatch.py
+    the UniMatch loader)."""
     ov = override.split()
     assert pconfig.config_to_dict(pconfig.load_config(str(REPO / "configs" / "hm3d.yaml"), ov)) \
         == jconfig.config_to_dict(jconfig.load_config(str(REPO / "configs" / "hm3d.yaml"), ov))

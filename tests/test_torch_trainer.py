@@ -32,7 +32,7 @@ import pytest
 import torch
 
 from test_torch_eval import OVERRIDES as EVAL_OVERRIDES
-from test_torch_serve import rand_params
+from test_torch_serve import rand_params, zero_init
 
 torch.set_num_threads(2)
 REPO = Path(__file__).resolve().parents[1]
@@ -104,11 +104,12 @@ def write_inputs(root: Path) -> dict:
     cfg = j_load_config(CONFIG, overrides)
     batch = batch_examples([next(iter(SceneDataset(cfg.dataset, split="train", stage="train")))])
     ctx = batch["context"]
-    jstate = j_create_train_state(jax.random.PRNGKey(0), cfg.model, cfg.train,
-                                  {k: v for k, v in batch.items() if k != "scene"})
     cubes = _context_cubes(jnp.asarray(ctx["image_sphere"]), H // 2)
     params = rand_params(JEncoder(cfg.model), ctx["image_sphere"], cubes,
                          ctx["extrinsics_sphere"], ctx["near"], ctx["far"], 0, seed=3)
+    with zero_init(params):
+        jstate = j_create_train_state(jax.random.PRNGKey(0), cfg.model, cfg.train,
+                                      {k: v for k, v in batch.items() if k != "scene"})
     jstate = jstate.replace(params=params, opt_state=jstate.tx.init(params))
     jckpt.save_checkpoint(str(root / "ckpt_jax"), 1, jstate)
 
@@ -146,7 +147,7 @@ def runs(tmp_path_factory):
             if self.writer is not None:
                 self.writer.close()
 
-    with pytest.MonkeyPatch.context() as mp:
+    with pytest.MonkeyPatch.context() as mp, zero_init(inputs["jstate"].params):
         mp.setenv("SPLAT360_PALLAS_INTERPRET", "1")
         mp.setattr(jtrainer.Trainer, "fit", fit_and_close)
         jmain.main([CONFIG, *inputs["overrides"], f"output_dir={out_j}",

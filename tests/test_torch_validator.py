@@ -25,7 +25,7 @@ import pytest
 import torch
 
 from test_torch_eval import PIXEL_SHARE, PSNR_TOL, SSIM_TOL
-from test_torch_serve import rand_params
+from test_torch_serve import rand_params, zero_init
 from test_torch_trainer import CONFIG, TINY
 
 torch.set_num_threads(2)
@@ -65,11 +65,12 @@ def val_runs(tmp_path_factory):
     cfg = j_load_config(CONFIG, overrides)
     batch = batch_examples([next(iter(SceneDataset(cfg.dataset, split="val", stage="val")))])
     ctx = batch["context"]
-    jstate = j_create_train_state(jax.random.PRNGKey(0), cfg.model, cfg.train,
-                                  {k: v for k, v in batch.items() if k != "scene"})
     cubes = _context_cubes(jnp.asarray(ctx["image_sphere"]), H // 2)
     params = rand_params(JEncoder(cfg.model), ctx["image_sphere"], cubes,
                          ctx["extrinsics_sphere"], ctx["near"], ctx["far"], 0, seed=3)
+    with zero_init(params):
+        jstate = j_create_train_state(jax.random.PRNGKey(0), cfg.model, cfg.train,
+                                      {k: v for k, v in batch.items() if k != "scene"})
     jstate = jstate.replace(params=params)
     rec_j, rec_p = Recorder(), Recorder()
     with pytest.MonkeyPatch.context() as mp:
