@@ -96,6 +96,19 @@ Phases (any failure ends in a non-zero exit and no result line):
      Evaluator.render_video on (a)'s Gaussians, 60 launches each, frame 0
      bit-equal to a direct render, a spin frame's kernel bit-equal to its
      plain version, ms a frame and a video;
+  3q. the JAX package's checkpoints and scene shards: (a) the libzstd.so.1
+     that utils/zstd.py loads and the native loader built against it
+     without zstd's headers, a 512x1024 scene written as .s3z and read back
+     equal; (b) tests/data/torch_orbax_hm3d (hm3d.yaml's train state at step
+     1234, written by the JAX package's orbax save_checkpoint) read by
+     train/orbax_reader.py, every leaf's sha256 against expected.json; (c)
+     mode=test on hm3d.yaml with checkpointing.load at it, 2 scenes, the
+     weights bit-equal to the converted tree, one fused forward launch a
+     scene; (d) mode=train resumed from it, 2 bf16 steps at B = 1 from step
+     1234 (Adam's moments and count restored, the learning rate
+     learning_rate(cfg, 1234)) through the fused pair, then the port's own
+     step 1236 the latest; (e) checkpointing.pretrained_model at it: weights
+     only, step 0;
   4. time each kernel and its plain version with CUDA events, the unfused
      path's pack and scatter apart, the fused kernels on the 3-view inputs,
      and the serving render stage by stage; both backward kernels at their
@@ -109,9 +122,10 @@ Phases (any failure ends in a non-zero exit and no result line):
      inputs (2e, 3h, 3i) and the forwards on all the train steps' inputs.
 It prints a JSON line of the CLI evaluation (3l), one of the CLI training
 (3m), one of the options and the scan compositor (3n), one of the mono
-branch (3o), one of the warm start and the videos (3p), one of per-kernel
-numbers (the ERP path's, the cube path's under cube_*, and the launches of
-3m's, 3n's, 3o's and 3p's runs), the nvidia-smi line, and as its last
+branch (3o), one of the warm start and the videos (3p), one of the JAX
+package's checkpoints and shards (3q), one of per-kernel numbers (the ERP
+path's, the cube path's under cube_*, and the launches of 3m's, 3n's,
+3o's, 3p's and 3q's runs), the nvidia-smi line, and as its last
 line
 {"ok": true, "device": {...}}.
 """
@@ -176,15 +190,22 @@ L2_TOL = 1e-5
 # version's) differ past L2_TOL in rows u and a, each as far from the
 # float64 function as the other (phase 3n (a) prints it). There L2_TOL
 # holds the unfused kernel against the fused one, and GRAD_TOL against the
-# plain version in float32 and in float64 (ROADMAP Queue 3).
+# plain version in float32; against the plain version in float64 each row is
+# held to max(GRAD_TOL, F64_RATIO x the float32 plain version's own distance
+# to it): one run measured row u of kernel and float32 plain version alike at
+# 2.31e-4 L2 from float64, so a fixed bar there tests float32, not the kernel
+# (ROADMAP Queue 3).
+F64_RATIO = 1.25
 # the one gradient leaf of phase 3j's small cube steps past GRAD_TOL, at a
 # fixed bound: the CPU step's own gradient of it jumps by 2.12e-3 of max|g|
 # under a 1e-6 perturbation of the params (ROADMAP Queue 3), as
 # tests/test_torch_train.py's JUMP_TOL leaf does for the ERP step
 CUBE_JUMP_TOL = {"backbone_erp.CNNEncoder_0.ResidualBlock_1.Conv_1.weight": 3.5e-3}
 # the spans timed in phase 4 (blocks of a heavy tile's segment or walk one
-# work item takes; None: one span a tile)
-SPANS = (1, 4, 16, 64, None)
+# work item takes; None: one span a tile): the default and its two ends.
+# Spans 4 and 64, timed in earlier runs (PERF.md §6), are left out to keep
+# the script's time with phase 3q added
+SPANS = (1, 16, None)
 # phase 3l: the CLI's test scenes (frames each) and the bf16 encoder's bars
 # against the CPU (tests/test_torch_bf16.py's: through the whole random
 # encoder, rounding flips of another backend grow to the policy's own size)
@@ -541,8 +562,11 @@ def compare_unfused_bwd_plain(inp, label, seed, span, duplicates=False):
     backward kernel on the same inputs, all with spans of `span` blocks: per
     row against GRAD_TOL and L2_TOL. With `duplicates` (each pixel's
     Gaussians coincide; see L2_TOL), L2_TOL holds against the fused
-    kernel only, and GRAD_TOL also against the plain version run in
-    float64. Returns the largest absolute error, the repeat differences of
+    kernel only, and each row's max distance to the plain version run in
+    float64 must be within max(GRAD_TOL, F64_RATIO x the float32 plain
+    version's own distance to it): the float32 conditioning of such rows
+    sets the float32 plain version as far off as the kernel (2.31e-4 L2
+    for both on one run of row u). Returns the largest absolute error, the repeat differences of
     the kernel's blocks and of the scattered gradients, the plain version's
     ms and its work counts."""
     from splatter360_tpu_torch.ops.cuda import composite as comp
@@ -591,14 +615,19 @@ def compare_unfused_bwd_plain(inp, label, seed, span, duplicates=False):
                     for x in args)
         g64 = scatter(comp.composite_backward_unfused_plain(*a64, span=span))
         rel_d, l2_d = row_errors(gk.double(), g64)
-        _, l2_pd = row_errors(gp.double(), g64)
-        rel_held = rel_held + rel_d
+        rel_pd, l2_pd = row_errors(gp.double(), g64)
+        bar_d = [max(GRAD_TOL, F64_RATIO * x) for x in rel_pd]
+        f64_ok = all(d <= b for d, b in zip(rel_d, bar_d))
         print(f"[{label}] duplicated Gaussians: against the plain version in float64, the "
-              f"kernel per row {[f'{x:.2e}' for x in rel_d]} (bar {GRAD_TOL:g}), L2 "
-              f"{[f'{x:.2e}' for x in l2_d]}; the float32 plain version's L2 "
+              f"kernel per row {[f'{x:.2e}' for x in rel_d]} (bars max(GRAD_TOL, {F64_RATIO:g} x "
+              f"the float32 plain version's) {[f'{x:.2e}' for x in bar_d]}: "
+              f"{'held' if f64_ok else 'MISSED'}), L2 {[f'{x:.2e}' for x in l2_d]}; the float32 "
+              f"plain version per row {[f'{x:.2e}' for x in rel_pd]}, L2 "
               f"{[f'{x:.2e}' for x in l2_pd]}")
         del g64
-    ok = (max(rel_held) <= GRAD_TOL and max(l2_held) <= L2_TOL
+    else:
+        f64_ok = True
+    ok = (max(rel_held) <= GRAD_TOL and max(l2_held) <= L2_TOL and f64_ok
           and bool(torch.isfinite(gk).all()) and not bool(gk[..., comp.N_GRAD:].any())
           and blocks_repeat == 0.0)
     if not ok:
@@ -1543,9 +1572,10 @@ def phase_small_train_cubes(seed):
 def cli_scenes(root: Path, seed: int, split: str = "test", n_scenes: int = CLI_SCENES,
                n_frames: int = CLI_FRAMES, shape: tuple | None = None) -> str:
     """n_scenes `split` scenes of n_frames frames of `shape` (default H x
-    W): random RGB, depth in [0.5, 5] m, poses 10 cm apart on a line.
-    Returns the format written (.s3z or .npz)."""
-    from splatter360_tpu_torch.data.scene_io import save_scene
+    W): random RGB, depth in [0.5, 5] m, poses 10 cm apart on a line, each
+    read back through load_scene equal to what was written. Returns the
+    format written (.s3z or .npz)."""
+    from splatter360_tpu_torch.data.scene_io import load_scene, save_scene
 
     shape = shape or (H, W)
     rng = np.random.default_rng(seed)
@@ -1555,6 +1585,10 @@ def cli_scenes(root: Path, seed: int, split: str = "test", n_scenes: int = CLI_S
         poses = np.tile(np.eye(4, dtype=np.float32), (n_frames, 1, 1))
         poses[:, 0, 3] = 0.1 * np.arange(n_frames)
         path = save_scene(root, split, f"{split}{i}", rgb, depth, poses)
+        back = load_scene(root, split, f"{split}{i}")
+        if not (np.array_equal(back["rgb"], rgb) and np.array_equal(back["poses"], poses)
+                and np.array_equal(back["depth_m"], depth.astype(np.float32) / 1000.0)):
+            raise AssertionError(f"{path}: the scene read back differs from what was written")
     return path.suffix
 
 
@@ -2989,6 +3023,247 @@ def bwd_row(label, res, unfused):
     return dict(ms=ms, plain_ms=res["plain_ms"], bound_ms=b_ms, bound_by=b_by)
 
 
+ORBAX_FIXTURE = Path(__file__).resolve().parent / "tests" / "data" / "torch_orbax_hm3d"
+ORBAX_STEP = 1234
+ORBAX_LEAVES = 616  # tensors of hm3d.yaml's encoder (16,671,350 parameters)
+ORBAX_STEPS = 2  # bf16 steps resumed from the fixture
+ORBAX_SCENES = 2  # test scenes of its mode=test
+
+
+def flat_tree(tree: dict, prefix: str = "") -> dict:
+    """{dotted key path: leaf} of the orbax reader's nested dicts."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flat_tree(v, f"{prefix}{k}."))
+        elif v is not None:
+            out[prefix + k] = v
+    return out
+
+
+@phase("3q (a). the zstd runtime library and the native scene-shard loader, built without "
+       "zstd's headers")
+def phase_zstd_loader(seed, root: Path):
+    """The libzstd.so.1 that utils/zstd.py loads and the native loader
+    (loader.cpp linked to that library) built; one 512x1024 scene through
+    save_scene and load_scene as .s3z, read back equal (cli_scenes). The
+    binding's decoder runs in (b), on the fixture's frames (written without
+    a content size, as orbax writes them)."""
+    from splatter360_tpu_torch import native
+    from splatter360_tpu_torch.utils import zstd
+
+    lib = zstd.library_path()
+    if not native.available():
+        raise AssertionError(f"the native scene-shard loader did not build: "
+                             f"{native.build_error()}")
+    loader = Path(native._LIB._name).name
+    t0 = time.perf_counter()
+    fmt = cli_scenes(root / "zstd_data", seed + 70, "test", 1, CLI_FRAMES)
+    scene_s = time.perf_counter() - t0
+    if fmt != ".s3z":
+        raise AssertionError(f"a scene was written as {fmt}, not .s3z")
+    shard = next((root / "zstd_data" / "test").glob("*.s3z"))
+    print(f"libzstd: {lib}; native loader {loader} built; 1 scene of {CLI_FRAMES} frames of "
+          f"{H}x{W} written as {fmt} ({shard.stat().st_size} bytes) and read back equal in "
+          f"{scene_s:.2f} s", flush=True)
+    return dict(libzstd=lib, loader=loader, scene_format=fmt, scene_s=scene_s)
+
+
+@phase("3q (b). the committed orbax checkpoint of hm3d.yaml's train state (step 1234), read "
+       "without orbax or tensorstore: every leaf's sha256")
+def phase_orbax_fixture(seed, root: Path):
+    """A copy of tests/data/torch_orbax_hm3d read by train/orbax_reader.py
+    (OCDBT manifest and B+tree nodes, zstd frames without a content size,
+    zarr v2 chunks): every leaf's shape, dtype and sha256 against
+    expected.json, 616 parameter tensors, the step 1234. Returns the copy's
+    directory, the tree and the read's seconds."""
+    import hashlib
+
+    from splatter360_tpu_torch.train import orbax_reader
+
+    ckpt_dir = root / "orbax_ckpt"
+    shutil.copytree(ORBAX_FIXTURE, ckpt_dir)
+    t0 = time.perf_counter()
+    tree = orbax_reader.read_checkpoint(ckpt_dir / str(ORBAX_STEP))
+    read_s = time.perf_counter() - t0
+    expected = json.loads((ckpt_dir / "expected.json").read_text())
+    got = flat_tree(tree)
+    if sorted(got) != sorted(expected):
+        raise AssertionError(f"the fixture's keys differ from expected.json: "
+                             f"{sorted(set(got) ^ set(expected))[:5]}")
+    for k, rec in expected.items():
+        arr = np.ascontiguousarray(got[k])
+        mine = dict(shape=list(arr.shape), dtype=str(arr.dtype),
+                    sha256=hashlib.sha256(arr.tobytes()).hexdigest())
+        if mine != rec:
+            raise AssertionError(f"fixture leaf {k}: {mine}, expected {rec}")
+    n_params = len(flat_tree(tree["params"]))
+    if n_params != ORBAX_LEAVES or int(tree["step"]) != ORBAX_STEP:
+        raise AssertionError(f"the fixture holds {n_params} parameter tensors at step "
+                             f"{int(tree['step'])}")
+    size = sum(p.stat().st_size for p in ORBAX_FIXTURE.rglob("*") if p.is_file())
+    print(f"{len(expected)} leaves ({n_params} parameter tensors, step {int(tree['step'])}) read "
+          f"in {read_s:.2f} s from {size} bytes; every sha256 equals expected.json", flush=True)
+    return dict(dir=ckpt_dir, tree=tree, read_s=read_s, leaves=len(expected), bytes=size)
+
+
+@phase("3q (c). mode=test on configs/hm3d.yaml with checkpointing.load at the JAX package's "
+       "orbax checkpoint: 2 scenes through the fused forward kernel")
+def phase_orbax_eval(seed, root: Path, fixture):
+    """hm3d.yaml's mode=test on 2 seeded 512x1024 test scenes with
+    checkpointing.load at (b)'s copy: the restored weights bit-equal to
+    convert.torch_state_from_flax of the tree (cli_run), the line naming
+    the orbax checkpoint at step 1234 printed and the random-weights
+    warning not, one fused forward launch a scene."""
+    from splatter360_tpu_torch.convert import torch_state_from_flax
+    from splatter360_tpu_torch.ops.cuda import composite as comp
+
+    fwd = comp.KERNEL_NAME
+    saved = torch_state_from_flax(fixture["tree"]["params"])
+    data = root / "orbax_test_data"
+    fmt = cli_scenes(data, seed + 71, "test", ORBAX_SCENES, CLI_FRAMES)
+    tee = Tee()
+    with contextlib.redirect_stdout(tee):
+        ev = cli_run("(c) mode=test of the orbax checkpoint",
+                     [str(CONFIG), "mode=test", f"dataset.roots=[{data}]",
+                      f"checkpointing.load={fixture['dir']}", "test.eval_depth=true",
+                      "test.eval_time_skip_steps=1", f"test.output_path={root / 'orbax_test'}"],
+                     fwd, saved)
+    printed = tee.text()
+    if "random weights" in printed:
+        raise AssertionError("(c) mode=test evaluated random weights")
+    line = f"the JAX package's orbax checkpoint at step {ORBAX_STEP}"
+    if line not in printed:
+        raise AssertionError(f"(c) mode=test did not print {line!r}")
+    if ev["launches"][fwd] != ORBAX_SCENES or any(
+            ev["launches"][k] for k in ev["launches"] if k != fwd):
+        raise AssertionError(f"(c) launches {ev['launches']}, expected {ORBAX_SCENES} fused "
+                             f"forward")
+    print(f"  (c) scenes written as {fmt}; restored {len(saved)} tensors bit-equal to the "
+          f"converted tree", flush=True)
+    return ev
+
+
+@phase("3q (d). mode=train resumed from the orbax checkpoint: 2 bf16 steps from step 1234 "
+       "through the fused pair, then the port's own step 1236 is the latest")
+def phase_orbax_resume(seed, root: Path, fixture):
+    """hm3d.yaml's mode=train (bf16, B = 1, no validation) over
+    <output_dir>/checkpoints holding the fixture's step 1234: the restore
+    checked (parameters bit-equal to the converted tree, Adam's moments to
+    the converted mu and nu, its step 1234 on every tensor), "resumed from
+    step 1234" printed, the first step's learning rate learning_rate(cfg,
+    1234), ORBAX_STEPS steps timed with one fused forward and one fused
+    backward launch each; then latest_step and describe pick the port's
+    checkpoint.pt of step 1236 beside the orbax step."""
+    from splatter360_tpu_torch.config import load_config
+    from splatter360_tpu_torch.convert import torch_state_from_flax
+    from splatter360_tpu_torch.ops.cuda import composite as comp
+    from splatter360_tpu_torch.train import checkpoint as ckpt
+    from splatter360_tpu_torch.train import trainer
+    from splatter360_tpu_torch.train.state import learning_rate
+
+    fwd, bwd = comp.KERNEL_NAME, comp.BWD_KERNEL_NAME
+    tree = fixture["tree"]
+    params = torch_state_from_flax(tree["params"])
+    adam = tree["opt_state"]["1"]["0"]
+    moments = {"exp_avg": torch_state_from_flax(adam["mu"]),
+               "exp_avg_sq": torch_state_from_flax(adam["nu"])}
+    data, out = root / "orbax_train_data", root / "orbax_run"
+    cli_scenes(data, seed + 72, "train", 2, TRAIN_FRAMES)
+    shutil.copytree(fixture["dir"] / str(ORBAX_STEP), out / "checkpoints" / str(ORBAX_STEP))
+    restored = {}
+
+    def same_as_tree(state, directory):
+        opt = state.optimizer.state_dict()["state"]
+        names = [n for n, p in state.model.named_parameters() if p.requires_grad]
+        steps = {float(entry["step"]) for entry in opt.values()}
+        restored["adam_step"] = sorted(steps)
+        restored["ok"] = (state.step == ORBAX_STEP and steps == {float(ORBAX_STEP)} and all(
+            torch.equal(v.cpu(), params[k]) for k, v in state.model.state_dict().items())
+            and all(torch.equal(opt[i][key].cpu(), moments[key][n])
+                    for i, n in enumerate(names) for key in moments))
+        print(f"  (d) restored step {state.step}, Adam's step {sorted(steps)} on "
+              f"{len(opt)} tensors", flush=True)
+
+    lrs = []
+    step_fn = trainer.train_step
+
+    def lr_step(state, batch):
+        out_metrics = step_fn(state, batch)
+        lrs.append((state.step - 1, state.optimizer.param_groups[0]["lr"]))
+        return out_metrics
+
+    final = ORBAX_STEP + ORBAX_STEPS
+    trainer.train_step = lr_step
+    try:
+        tr = train_run(f"(d) mode=train resumed from the orbax step, bf16, {ORBAX_STEPS} steps",
+                       [str(CONFIG), "mode=train", f"dataset.roots=[{data}]", f"output_dir={out}",
+                        "trainer.batch_size=1", f"trainer.max_steps={final}",
+                        f"checkpointing.every_n_train_steps={ORBAX_STEPS}",
+                        "trainer.num_sanity_val_steps=0", "trainer.val_check_interval=0",
+                        "trainer.print_log_every_n_steps=1"], restore_check=same_as_tree)
+    finally:
+        trainer.train_step = step_fn
+    line = f"resumed from step {ORBAX_STEP} (the JAX package's orbax checkpoint"
+    if line not in tr["printed"]:
+        raise AssertionError(f"(d) no {line!r} line")
+    if not restored.get("ok"):
+        raise AssertionError("(d) parameters, Adam's moments or step not restored as read")
+    ocfg = load_config(str(CONFIG)).train.optimizer
+    want_lr = [(s, learning_rate(ocfg, s)) for s in range(ORBAX_STEP, final)]
+    if lrs != want_lr:
+        raise AssertionError(f"(d) learning rates {lrs}, expected {want_lr}")
+    if tr["step"] != final or (tr["launches"][fwd], tr["launches"][bwd]) != (ORBAX_STEPS,
+                                                                             ORBAX_STEPS):
+        raise AssertionError(f"(d) step {tr['step']}, launches {tr['launches']}")
+    check_train_out("(d)", out, [final], [], list(range(ORBAX_STEP + 1, final + 1)))
+    latest = ckpt.latest_step(out / "checkpoints")
+    said = ckpt.describe(out / "checkpoints")
+    if latest != final or "checkpoint.pt" not in said:
+        raise AssertionError(f"(d) the next resume would take {latest} ({said})")
+    saved = torch.load(out / "checkpoints" / str(final) / ckpt.FILE, map_location="cpu",
+                       weights_only=True)
+    if saved["step"] != final or {float(e["step"]) for e in
+                                  saved["opt_state"]["state"].values()} != {float(final)}:
+        raise AssertionError(f"(d) step {final}'s checkpoint.pt holds step {saved['step']}")
+    print(f"  (d) learning rates {lrs}; the next resume takes {said}", flush=True)
+    tr.pop("printed", None)
+    return dict(tr, lrs=lrs, adam_step=restored["adam_step"], next_resume=said)
+
+
+@phase("3q (e). checkpointing.pretrained_model at the orbax checkpoint: weights only, step 0")
+def phase_orbax_pretrained(seed, root: Path, fixture):
+    """hm3d.yaml's mode=train with checkpointing.pretrained_model at (b)'s
+    copy and trainer.max_steps=0: the line naming the orbax checkpoint
+    printed, the run's step 0 and its step-0 checkpoint.pt holding the
+    converted tree's parameters bit for bit and fresh Adam moments."""
+    from splatter360_tpu_torch.convert import torch_state_from_flax
+    from splatter360_tpu_torch.train import checkpoint as ckpt
+
+    params = torch_state_from_flax(fixture["tree"]["params"])
+    data, out = root / "orbax_train_data", root / "orbax_pretrained"
+    tr = train_run("(e) mode=train with pretrained_model, 0 steps",
+                   [str(CONFIG), "mode=train", f"dataset.roots=[{data}]", f"output_dir={out}",
+                    f"checkpointing.pretrained_model={fixture['dir']}", "trainer.batch_size=1",
+                    "trainer.max_steps=0", "trainer.num_sanity_val_steps=0",
+                    "trainer.val_check_interval=0"])
+    line = (f"warm-started weights from pretrained_model (the JAX package's orbax checkpoint at "
+            f"step {ORBAX_STEP})")
+    if line not in tr["printed"]:
+        raise AssertionError(f"(e) no {line!r} line")
+    saved = torch.load(out / "checkpoints" / "0" / ckpt.FILE, map_location="cpu",
+                       weights_only=True)
+    if tr["step"] != 0 or saved["step"] != 0 or saved["opt_state"]["state"]:
+        raise AssertionError(f"(e) step {tr['step']}, Adam state "
+                             f"{len(saved['opt_state']['state'])} tensors")
+    if sorted(saved["params"]) != sorted(params) or not all(
+            torch.equal(saved["params"][k], v) for k, v in params.items()):
+        raise AssertionError("(e) the warm-started weights differ from the converted tree")
+    print(f"  (e) step 0, {len(params)} tensors bit-equal to the converted tree", flush=True)
+    tr.pop("printed", None)
+    return tr
+
+
 @phase("4. timing")
 def phase_timing(check, serve, bcheck, train, ucheck, ubcheck, serve3, train3, pin, cserve,
                  ctrain, cremat):
@@ -3171,6 +3446,21 @@ def main():
         shutil.rmtree(backbone_root, ignore_errors=True)
     backbone_s = time.perf_counter() - t_backbone
     print(f"phase 3p took {backbone_s:.1f} s", flush=True)
+    t_orbax = time.perf_counter()
+    orbax_root = Path(tempfile.mkdtemp(prefix="splat360_orbax_"))
+    try:
+        zstd_loader = phase_zstd_loader(args.seed, orbax_root) or {}
+        fixture = phase_orbax_fixture(args.seed, orbax_root)
+        orbax_eval = orbax_resume = orbax_pretrained = None
+        if fixture is not None:
+            orbax_eval = phase_orbax_eval(args.seed, orbax_root, fixture)
+            orbax_resume = phase_orbax_resume(args.seed, orbax_root, fixture)
+            orbax_pretrained = phase_orbax_pretrained(args.seed, orbax_root, fixture)
+            fixture = {k: v for k, v in fixture.items() if k not in ("dir", "tree")}
+    finally:
+        shutil.rmtree(orbax_root, ignore_errors=True)
+    orbax_s = time.perf_counter() - t_orbax
+    print(f"phase 3q took {orbax_s:.1f} s", flush=True)
     rows = phase_timing(check, serve, bcheck, train, ucheck, ubcheck, serve3, train3, pin,
                         cserve, ctrain, cremat) or {}
     # each path's own kernels, counted over its own run
@@ -3200,7 +3490,9 @@ def main():
             ("CLI with the mono branch", mono_cli or None, fused),
             ("UniMatch warm start at HM3D width", backbone or None, fused),
             ("CLI with pretrained_backbone and save_video", backbone_cli or None, fused),
-            ("trajectory videos at HM3D width", videos or None, fused[:1])):
+            ("trajectory videos at HM3D width", videos or None, fused[:1]),
+            ("mode=test of the JAX package's orbax checkpoint", orbax_eval, fused[:1]),
+            ("mode=train resumed from the orbax checkpoint", orbax_resume, fused)):
         if res is None:
             failures.append(f"{label} run missing")
         elif min(res["launches"].get(k, 0) for k in names) == 0:
@@ -3222,7 +3514,8 @@ def main():
         the CLI's training and its mode=test with videos); video_launches
         over phase 3p (c)'s three videos and, for the fused forward,
         video_frame_ms, its bound and its plain version's ms on one spin
-        frame."""
+        frame; orbax_launches over phase 3q (c-d)'s (mode=test of the JAX
+        package's orbax checkpoint, the steps resumed from it)."""
         ctrain = cli_train["b" if "unfused" in name else "a"]
         return dict(name=name, route="cuda", source=f"splatter360_tpu_torch/csrc/{source}",
                     replaces=f"splatter360_tpu/ops/pallas/composite.py:{replaces}",
@@ -3238,6 +3531,8 @@ def main():
                     backbone_launches=backbone["launches"][name]
                     + backbone_cli["launches"][name],
                     video_launches=videos["launches"][name],
+                    orbax_launches=orbax_eval["launches"][name]
+                    + orbax_resume["launches"][name],
                     **({"video_frame_ms": videos["kernel_ms"],
                         "video_frame_bound_ms": videos["bound_ms"],
                         "video_frame_plain_ms": videos["plain_ms"]}
@@ -3281,6 +3576,9 @@ def main():
     print(json.dumps({"backbone_and_videos": dict(hm3d=backbone, cli=backbone_cli,
                                                   videos=videos, seconds=backbone_s),
                       "card": smi}))
+    print(json.dumps({"orbax": dict(zstd_loader=zstd_loader, fixture=fixture, eval=orbax_eval,
+                                    resume=orbax_resume, pretrained=orbax_pretrained,
+                                    seconds=orbax_s), "card": smi}, default=str))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

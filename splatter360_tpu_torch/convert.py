@@ -79,3 +79,53 @@ def lpips_state_from_flax(params: Mapping) -> dict[str, torch.Tensor]:
             raise ValueError(f"unexpected LPIPS parameter {'/'.join(path)}")
         state[name] = torch.from_numpy(np.ascontiguousarray(arr, np.float32))
     return state
+
+
+def adam_state_from_optax(opt_state: Mapping, model: torch.nn.Module,
+                          step: int | None = None) -> dict:
+    """The optax state of the JAX package's make_optimizer (clip_by_global_norm,
+    then adam: {"0": None, "1": {"0": {count, mu, nu}, "1": {count}}}, as
+    train/orbax_reader.py reads it) -> the "state" of a torch.optim.Adam
+    state_dict over `model`'s trainable parameters in their order
+    (train/state.create_train_state's Adam): mu and nu become exp_avg and
+    exp_avg_sq through torch_state_from_flax's layout rules, and the count
+    becomes Adam's step. The schedule's count and `step` (the train state's
+    step) must equal it. The frozen parameters' moments (the mono ViT's, which
+    JAX keeps at zero) must be all zero and are dropped. Returns {index:
+    {"step", "exp_avg", "exp_avg_sq"}}; any other shape of state raises
+    ValueError."""
+    try:
+        clip, (adam, schedule) = opt_state["0"], (opt_state["1"]["0"], opt_state["1"]["1"])
+        count, mu, nu = adam["count"], adam["mu"], adam["nu"]
+        schedule_count = schedule["count"]
+    except (KeyError, TypeError) as e:
+        raise ValueError(f"not the optax state of make_optimizer (clip, (adam, schedule)): "
+                         f"missing {e}") from e
+    if clip is not None or set(opt_state) != {"0", "1"} or set(opt_state["1"]) != {"0", "1"}:
+        raise ValueError(f"not the optax state of make_optimizer: keys {sorted(opt_state)}")
+    if set(adam) != {"count", "mu", "nu"} or set(schedule) != {"count"}:
+        raise ValueError(f"not optax's adam state: keys {sorted(adam)}, {sorted(schedule)}")
+    count = int(np.asarray(count))
+    if int(np.asarray(schedule_count)) != count:
+        raise ValueError(f"the schedule's count {int(np.asarray(schedule_count))} != "
+                         f"Adam's count {count}")
+    if step is not None and int(step) != count:
+        raise ValueError(f"the train state's step {int(step)} != Adam's count {count}")
+    moments = {"exp_avg": torch_state_from_flax(mu), "exp_avg_sq": torch_state_from_flax(nu)}
+    params = dict(model.named_parameters())
+    for kind, tree in moments.items():
+        unknown = sorted(set(tree) - set(params))
+        missing = sorted(n for n, p in params.items() if p.requires_grad and n not in tree)
+        if unknown or missing:
+            raise ValueError(f"optax {kind} does not fit the model: first missing "
+                             f"{missing[:3]}, first unexpected {unknown[:3]}")
+        for name, value in tree.items():
+            if tuple(value.shape) != tuple(params[name].shape):
+                raise ValueError(f"optax {kind} {name}: shape {tuple(value.shape)}, the model's "
+                                 f"{tuple(params[name].shape)}")
+            if not params[name].requires_grad and bool(torch.any(value != 0)):
+                raise ValueError(f"optax {kind} of the frozen parameter {name} is not zero")
+    trainable = [n for n, p in params.items() if p.requires_grad]
+    return {i: {"step": torch.tensor(float(count)), "exp_avg": moments["exp_avg"][name],
+                "exp_avg_sq": moments["exp_avg_sq"][name]}
+            for i, name in enumerate(trainable)}

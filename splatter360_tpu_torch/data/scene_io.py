@@ -10,9 +10,10 @@ Counterpart of splatter360_tpu/data/scene_io.py (`save_scene`, `load_scene`,
 
 A scene is written as .s3z when the native loader builds and as npz
 otherwise; an existing .s3z is read through the loader, which raises when it
-cannot be built. The converters from the reference's on-disk layout
-(`convert_reference_scene`, `export_reference_layout`) need cv2 and are not
-ported (ROADMAP.md).
+cannot be built. `convert_reference_scene` and `export_reference_layout`
+convert from and to the reference's on-disk layout of a scene (pano/%05d.png,
+pano_depth/%05d.png u16 mm, rotation.npy, translation.npy) with cv2, writing
+the same bytes as the JAX package's.
 """
 
 from __future__ import annotations
@@ -67,6 +68,50 @@ def list_scenes(root, split) -> list[str]:
     if not idx_path.exists():
         return []
     return json.loads(idx_path.read_text())["scenes"]
+
+
+def convert_reference_scene(scene_dir, root, split: str, scene: str) -> Path:
+    """Store a scene of the reference's layout (pano/%05d.png RGB,
+    pano_depth/%05d.png u16 mm, rotation.npy [n, 3, 3], translation.npy
+    [n, 3]) as `scene` of `split`; returns the file written."""
+    import cv2
+
+    sd = Path(scene_dir)
+    rot = np.load(sd / "rotation.npy")
+    trans = np.load(sd / "translation.npy")
+    n = rot.shape[0]
+    rgbs, depths = [], []
+    for i in range(n):
+        img = cv2.imread(str(sd / "pano" / f"{i:05d}.png"), cv2.IMREAD_COLOR)
+        dep = cv2.imread(str(sd / "pano_depth" / f"{i:05d}.png"), cv2.IMREAD_UNCHANGED)
+        if img is None or dep is None:
+            raise FileNotFoundError(f"{sd}: frame {i:05d} is missing or unreadable")
+        rgbs.append(cv2.cvtColor(img, cv2.COLOR_BGR2RGB))
+        depths.append(dep.astype(np.uint16))
+    poses = np.tile(np.eye(4, dtype=np.float32), (n, 1, 1))
+    poses[:, :3, :3] = rot
+    poses[:, :3, 3] = trans
+    return save_scene(root, split, scene, np.stack(rgbs), np.stack(depths), poses)
+
+
+def export_reference_layout(root, split: str, scene: str, out_dir) -> None:
+    """Write a stored scene in the reference's layout (the inverse of
+    convert_reference_scene): RGB PNGs, depth PNGs in u16 mm (rounded, not
+    truncated: 4.999 m * 1000 can land at 4999.9999 in float32), the
+    rotations and translations of its poses."""
+    import cv2
+
+    data = load_scene(root, split, scene)
+    out = Path(out_dir)
+    (out / "pano").mkdir(parents=True, exist_ok=True)
+    (out / "pano_depth").mkdir(exist_ok=True)
+    depth_mm = np.clip(np.rint(data["depth_m"] * 1000.0), 0, 65535).astype(np.uint16)
+    for i in range(data["rgb"].shape[0]):
+        cv2.imwrite(str(out / "pano" / f"{i:05d}.png"),
+                    cv2.cvtColor(data["rgb"][i], cv2.COLOR_RGB2BGR))
+        cv2.imwrite(str(out / "pano_depth" / f"{i:05d}.png"), depth_mm[i])
+    np.save(out / "rotation.npy", data["poses"][:, :3, :3])
+    np.save(out / "translation.npy", data["poses"][:, :3, 3])
 
 
 def write_synthetic_scene(root, split: str = "train", scene: str = "synth0", n_frames: int = 32,

@@ -9,7 +9,8 @@ file and dotted overrides (config.py), then runs the mode:
     and checkpoints under <output_dir>;
   * test: evaluate the encoder restored (weights only) from
     checkpointing.load (a directory or wandb://run[:vN]) or
-    <output_dir>/checkpoints on the test split (train/evaluator.py);
+    <output_dir>/checkpoints, holding the port's checkpoint.pt steps or the
+    JAX package's orbax steps, on the test split (train/evaluator.py);
   * generate_index: write <output_dir>/evaluation_index.json;
   * compute_metrics: recompute metrics of <output_dir>/methods/* against
     <output_dir>/gt into <output_dir>/metrics.
@@ -59,7 +60,9 @@ def main(argv=None, device: str | torch.device = "cuda"):
         ckpt_dir = ckpt.resolve_checkpoint_uri(cfg.checkpointing.load) or str(
             Path(cfg.output_dir) / "checkpoints")
         state, ok = ckpt.restore_weights_only(ckpt_dir, state)
-        if not ok:
+        if ok:
+            print(f"restored the weights of {ckpt.describe(ckpt_dir)} from {ckpt_dir}")
+        else:
             print("warning: no checkpoint restored; evaluating random weights")
         return Evaluator(cfg, state, lpips_fn=make_lpips_fn(cfg.train.loss.lpips_weights, dev),
                          device=dev).run()

@@ -1,9 +1,11 @@
 """ctypes binding of the scene-shard loader (loader.cpp), built at first use.
 
 Counterpart of splatter360_tpu/native/__init__.py with the same .s3z format
-(loader.cpp's header). The library is built with `g++ ... -lzstd` into
-`native/build/` (listed in .gitignore), named by a hash of the source and
-flags. Where it cannot be built (no g++, no zstd headers or library),
+(loader.cpp's header). The library is built with g++ into `native/build/`
+(listed in .gitignore), named by a hash of the source and the command. It
+needs no zstd headers: loader.cpp declares the four zstd functions it calls
+and links the runtime library libzstd.so.1 by the path that utils/zstd.py
+loads (or by soname). Where it cannot be built (no g++, no libzstd.so.1),
 `available()` is False and `build_error()` says why; writers then store
 npz files (data/scene_io.save_scene), and opening an existing shard raises
 that reason: an .s3z scene is never skipped.
@@ -20,6 +22,8 @@ from pathlib import Path
 
 import numpy as np
 
+from ..utils import zstd
+
 _HERE = Path(__file__).resolve().parent
 SOURCE = _HERE / "loader.cpp"
 BUILD_DIR = _HERE / "build"
@@ -28,27 +32,30 @@ _LIB = None
 _ERROR: str | None = None
 
 
-def _lib_path() -> Path:
-    digest = hashlib.sha1(" ".join(FLAGS).encode() + SOURCE.read_bytes()).hexdigest()[:12]
+def _link() -> str:
+    """The linker argument for libzstd: the file utils/zstd.py loaded, or
+    the soname (RuntimeError naming libzstd.so.1 when it is missing)."""
+    path = zstd.library_path()
+    return path if os.path.isabs(path) else f"-l:{zstd.SONAME}"
+
+
+def _lib_path(link: str) -> Path:
+    digest = hashlib.sha1(" ".join((*FLAGS, link)).encode()
+                          + SOURCE.read_bytes()).hexdigest()[:12]
     return BUILD_DIR / f"libs3z_{digest}.so"
 
 
-def _build(out: Path) -> None:
+def _build(out: Path, link: str) -> None:
     cxx = shutil.which("g++")
     if cxx is None:
         raise RuntimeError("the scene-shard loader needs g++, which is not on PATH")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run([cxx, *FLAGS, str(SOURCE), "-lzstd", "-o", str(tmp)],
+    proc = subprocess.run([cxx, *FLAGS, str(SOURCE), link, "-o", str(tmp)],
                           capture_output=True, text=True)
     if proc.returncode != 0:
         log = proc.stderr.strip()
-        if "zstd.h" in log:
-            what = "libzstd's headers (zstd.h) are missing"
-        elif "lzstd" in log:
-            what = "libzstd (-lzstd) is missing"
-        else:
-            what = "g++ failed"
+        what = f"linking {link} failed" if "zstd" in log.lower() else "g++ failed"
         raise RuntimeError(f"cannot build the scene-shard loader: {what}:\n{log[-2000:]}")
     os.replace(tmp, out)
 
@@ -57,10 +64,11 @@ def _load():
     global _LIB, _ERROR
     if _LIB is not None or _ERROR is not None:
         return _LIB
-    path = _lib_path()
     try:
+        link = _link()
+        path = _lib_path(link)
         if not path.exists():
-            _build(path)
+            _build(path, link)
         lib = ctypes.CDLL(str(path))
     except (RuntimeError, OSError) as e:
         _ERROR = str(e)

@@ -16,6 +16,7 @@
 // C API (ctypes): see __init__.py beside this file.
 
 #include <atomic>
+#include <cstddef>
 #include <cstdint>
 #include <cstdio>
 #include <cstring>
@@ -26,7 +27,16 @@
 #include <sys/mman.h>
 #include <sys/stat.h>
 #include <unistd.h>
-#include <zstd.h>
+
+// The few zstd functions used here, declared as zstd.h declares them, so that
+// the loader builds against the runtime library alone (libzstd.so.1, no
+// headers); __init__.py links it by path or soname.
+extern "C" {
+size_t ZSTD_compress(void* dst, size_t dst_cap, const void* src, size_t src_size, int level);
+size_t ZSTD_decompress(void* dst, size_t dst_cap, const void* src, size_t src_size);
+size_t ZSTD_compressBound(size_t src_size);
+unsigned ZSTD_isError(size_t code);
+}
 
 namespace {
 

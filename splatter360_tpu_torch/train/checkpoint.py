@@ -8,12 +8,17 @@ weights-only modes with JAX's layout of step directories:
                                        state_dict, "step": int}
 
 written to a temporary name and renamed, so that a step directory holds a
-whole checkpoint or none. The frozen mono ViT (add_mono_feat) is in the
-parameters but not in Adam's state: the port's optimizer holds only the
-trainable parameters, where JAX's optax state keeps zero moments for the
-ViT's leaves too (its gradients are 0 by stop_gradient), so a reader of
-JAX checkpoints must drop those. Orbax checkpoints written by the JAX
-package are not read here (that needs orbax; ROADMAP.md Queue 1 item 2).
+whole checkpoint or none. `latest_step`, `restore_checkpoint` and
+`restore_weights_only` also read the step directories the JAX package's
+orbax CheckpointManager writes (<step>/default/..., train/orbax_reader.py),
+and take the highest step of either kind. An orbax tree goes through
+convert.torch_state_from_flax (the parameters) and
+convert.adam_state_from_optax (Adam's moments and count). The frozen mono
+ViT (add_mono_feat) is in the parameters but not in Adam's state: the
+port's optimizer holds only the trainable parameters, where JAX's optax
+state keeps zero moments for the ViT's leaves too (its gradients are 0 by
+stop_gradient); those are checked to be zero and dropped. A tree that does
+not fit the model, or an orbax step that cannot be read, raises.
 
 Partial warm starts from torch weight files, as the JAX package's: both
 multiview backbones from a UniMatch gmdepth file (`warm_start_backbones`,
@@ -28,16 +33,19 @@ import shutil
 from pathlib import Path
 from typing import Optional
 
+import numpy as np
 import torch
 
+from ..convert import adam_state_from_optax, torch_state_from_flax
 from ..utils.torch_convert import (convert_dinov2, convert_unimatch_backbone,
                                    load_torch_state_dict)
+from . import orbax_reader
 from .state import TrainState
 
 FILE = "checkpoint.pt"
 
 
-def _steps(directory) -> list[int]:
+def _port_steps(directory) -> list[int]:
     d = Path(directory)
     if not d.is_dir():
         return []
@@ -45,13 +53,35 @@ def _steps(directory) -> list[int]:
                   if p.name.isdigit() and (p / FILE).is_file())
 
 
+def _kind(step_dir: Path) -> Optional[str]:
+    """"checkpoint.pt" (the port's; preferred where a step holds both), "orbax"
+    (the JAX package's) or None."""
+    if (step_dir / FILE).is_file():
+        return FILE
+    if orbax_reader.is_step_dir(step_dir):
+        return "orbax"
+    return None
+
+
 def latest_step(directory) -> Optional[int]:
-    steps = _steps(directory)
-    return steps[-1] if steps else None
+    """The highest step of either kind under `directory` (None: no step)."""
+    steps = _port_steps(directory) + orbax_reader.steps(directory)
+    return max(steps) if steps else None
+
+
+def describe(directory, step: Optional[int] = None) -> Optional[str]:
+    """Which checkpoint a restore from `directory` reads, in words."""
+    step = latest_step(directory) if step is None else step
+    kind = None if step is None else _kind(Path(directory) / str(step))
+    if kind is None:
+        return None
+    what = "the port's checkpoint.pt" if kind == FILE else "the JAX package's orbax checkpoint"
+    return f"{what} at step {step}"
 
 
 def save_checkpoint(directory, step: int, state: TrainState, max_to_keep: int = -1) -> Path:
-    """Write <directory>/<step>/; keep the newest `max_to_keep` steps (<= 0: all)."""
+    """Write <directory>/<step>/; keep the newest `max_to_keep` of the port's
+    steps (<= 0: all; the JAX package's orbax steps are left alone)."""
     step_dir = Path(directory) / str(int(step))
     step_dir.mkdir(parents=True, exist_ok=True)
     payload = {
@@ -63,37 +93,70 @@ def save_checkpoint(directory, step: int, state: TrainState, max_to_keep: int = 
     torch.save(payload, tmp)
     os.replace(tmp, step_dir / FILE)
     if max_to_keep > 0:
-        for old in _steps(directory)[:-max_to_keep]:
+        for old in _port_steps(directory)[:-max_to_keep]:
             shutil.rmtree(Path(directory) / str(old))
     return step_dir
 
 
 def _read(directory, step: Optional[int]):
+    """(kind, the checkpoint) of `step` (default: the latest), or None."""
     step = latest_step(directory) if step is None else step
-    if step is None or not (Path(directory) / str(step) / FILE).is_file():
+    if step is None:
         return None
-    return torch.load(Path(directory) / str(step) / FILE, map_location="cpu", weights_only=True)
+    step_dir = Path(directory) / str(step)
+    kind = _kind(step_dir)
+    if kind == FILE:
+        return kind, torch.load(step_dir / FILE, map_location="cpu", weights_only=True)
+    if kind == "orbax":
+        return kind, orbax_reader.read_checkpoint(step_dir)
+    return None
+
+
+def _load_params(model: torch.nn.Module, params, where: str) -> None:
+    """load_state_dict(strict=True), naming the first missing, unexpected
+    and misshapen keys where the checkpoint does not fit the model."""
+    own = model.state_dict()
+    missing = [k for k in own if k not in params]
+    unexpected = [k for k in params if k not in own]
+    shapes = [k for k in own if k in params and tuple(own[k].shape) != tuple(params[k].shape)]
+    if missing or unexpected or shapes:
+        raise ValueError(f"{where}: the checkpoint does not fit the model: {len(missing)} "
+                         f"missing (first {missing[:1]}), {len(unexpected)} unexpected "
+                         f"(first {unexpected[:1]}), {len(shapes)} of another shape "
+                         f"(first {shapes[:1]})")
+    model.load_state_dict(params, strict=True)
 
 
 def restore_checkpoint(directory, state: TrainState, step: Optional[int] = None):
     """Full resume: (state with its parameters, Adam state and step restored
     in place, True), or (state, False) when there is no checkpoint."""
-    ckpt = _read(directory, step)
-    if ckpt is None:
+    found = _read(directory, step)
+    if found is None:
         return state, False
-    state.model.load_state_dict(ckpt["params"])
-    state.optimizer.load_state_dict(ckpt["opt_state"])
-    state.step = int(ckpt["step"])
+    kind, ckpt = found
+    if kind == FILE:
+        _load_params(state.model, ckpt["params"], str(directory))
+        state.optimizer.load_state_dict(ckpt["opt_state"])
+        state.step = int(ckpt["step"])
+        return state, True
+    _load_params(state.model, torch_state_from_flax(ckpt["params"]), str(directory))
+    step = int(np.asarray(ckpt["step"]))
+    opt = state.optimizer.state_dict()
+    opt["state"] = adam_state_from_optax(ckpt["opt_state"], state.model, step)
+    state.optimizer.load_state_dict(opt)
+    state.step = step
     return state, True
 
 
 def restore_weights_only(directory, state: TrainState, step: Optional[int] = None):
     """Weights-only: (state with its parameters restored, True), keeping its
     optimizer and step; (state, False) when there is no checkpoint."""
-    ckpt = _read(directory, step)
-    if ckpt is None:
+    found = _read(directory, step)
+    if found is None:
         return state, False
-    state.model.load_state_dict(ckpt["params"])
+    kind, ckpt = found
+    params = ckpt["params"] if kind == FILE else torch_state_from_flax(ckpt["params"])
+    _load_params(state.model, params, str(directory))
     return state, True
 
 

@@ -249,12 +249,12 @@ class Trainer:
         if cfg.checkpointing.resume:
             state, resumed = ckpt.restore_checkpoint(ckpt_dir, state)
             if resumed:
-                print(f"resumed from step {state.step}")
+                print(f"resumed from step {state.step} ({ckpt.describe(ckpt_dir)})")
         if cfg.checkpointing.pretrained_model and state.step == 0:
-            state, ok = ckpt.restore_weights_only(
-                ckpt.resolve_checkpoint_uri(cfg.checkpointing.pretrained_model), state)
+            src = ckpt.resolve_checkpoint_uri(cfg.checkpointing.pretrained_model)
+            state, ok = ckpt.restore_weights_only(src, state)
             if ok:
-                print("warm-started weights from pretrained_model")
+                print(f"warm-started weights from pretrained_model ({ckpt.describe(src)})")
         if cfg.checkpointing.pretrained_backbone and state.step == 0:
             n = ckpt.warm_start_backbones(
                 state.model, ckpt.resolve_checkpoint_uri(cfg.checkpointing.pretrained_backbone))

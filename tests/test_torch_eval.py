@@ -226,3 +226,32 @@ def test_checkpoint_restores_the_saved_weights(erp_run, tmp_path):
     saved = torch.load(root / "ckpt_port" / "1" / ckpt.FILE, weights_only=True)["params"]
     for name, p in state.model.state_dict().items():
         assert torch.equal(p, saved[name]), name
+
+
+def test_jax_checkpoint_evaluates_as_the_ports(erp_run, capsys, monkeypatch):
+    """The port's mode=test pointed at the JAX package's orbax checkpoint
+    (ckpt_jax) writes what it writes from the port's own checkpoint.pt of
+    the same weights (ckpt_port): the same scores and PNG bytes."""
+    import splatter360_tpu_torch.train.lpips as plpips
+    from splatter360_tpu_torch.main import main
+
+    out_j, out_p = erp_run
+    root = out_p.parent
+    out_o = root / "out_port_from_orbax"
+    lpips = plpips.LPIPS()
+    lpips.load_state_dict(jax_lpips_state())
+    lpips = lpips.requires_grad_(False).eval()
+    monkeypatch.setattr(plpips, "make_lpips_fn", lambda *a, **k: lambda x, y: lpips(x, y))
+    main([str(REPO / "configs" / "synthetic_smoke.yaml"), f"dataset.roots=[{root / 'data'}]",
+          *OVERRIDES, f"checkpointing.load={root / 'ckpt_jax'}", f"test.output_path={out_o}"],
+         device="cpu")
+    printed = capsys.readouterr().out
+    assert "orbax checkpoint at step 1" in printed and "random weights" not in printed
+    scores = sorted(p.name for p in out_p.glob("scores_*.json"))
+    assert scores and scores == sorted(p.name for p in out_o.glob("scores_*.json"))
+    for name in scores:
+        assert (out_o / name).read_text() == (out_p / name).read_text(), name
+    pngs = sorted(p.relative_to(out_p) for p in out_p.rglob("*.png"))
+    assert pngs and pngs == sorted(p.relative_to(out_o) for p in out_o.rglob("*.png"))
+    for rel in pngs:
+        assert (out_o / rel).read_bytes() == (out_p / rel).read_bytes(), rel

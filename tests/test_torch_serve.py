@@ -153,7 +153,8 @@ def test_serving_slice_vs_jax(monkeypatch):
 
 
 def test_import_leaves_jax_out():
-    """The port imports neither JAX/Flax nor the JAX package, and its
+    """The port imports neither JAX/Flax nor the JAX package, nor orbax or
+    tensorstore (train/orbax_reader.py reads the JAX checkpoints), and its
     trainer needs no TensorBoard package (utils/tb_events.py writes the
     events); every module is imported, the trainer's by name."""
     code = (
@@ -162,12 +163,13 @@ def test_import_leaves_jax_out():
         "for m in pkgutil.walk_packages(p.__path__, 'splatter360_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'splatter360_tpu', 'tensorboard', 'tensorboardX'))\n"
+        "('jax', 'jaxlib', 'flax', 'splatter360_tpu', 'tensorboard', 'tensorboardX',\n"
+        " 'orbax', 'tensorstore'))\n"
         "assert not bad, bad\n"
         "new = ['train.trainer', 'utils.step_tracker', 'utils.tb_events', 'models.visualizer',\n"
         "       'models.epipolar', 'ops.composite_scan', 'models.dino',\n"
         "       'utils.torch_convert', 'train.checkpoint', 'train.evaluator',\n"
-        "       'geometry.transforms']\n"
+        "       'geometry.transforms', 'train.orbax_reader', 'utils.zstd']\n"
         "missing = [m for m in new if 'splatter360_tpu_torch.' + m not in sys.modules]\n"
         "assert not missing, missing\n"
     )

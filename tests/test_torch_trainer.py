@@ -283,6 +283,25 @@ def test_resume_takes_the_step_train_step_takes(runs):
         assert logged[f"train/{k}"][STEPS] == np.float32(float(v)), k
 
 
+def test_resume_from_a_jax_step(runs, capsys):
+    """checkpoints/ holding the JAX package's orbax step 2 (its run's): the
+    port resumes from it, says so, and takes step 3 with Adam's count of 2
+    carried over."""
+    from splatter360_tpu_torch.main import main
+    from splatter360_tpu_torch.train import checkpoint as ckpt
+
+    root, inputs, out_j, _ = runs
+    out_x = root / "out_resumed_from_jax"
+    shutil.copytree(out_j / "checkpoints" / "2", out_x / "checkpoints" / "2")
+    main(port_argv(root, inputs, out_x), device="cpu")
+    printed = capsys.readouterr().out
+    assert "resumed from step 2 (the JAX package's orbax checkpoint at step 2)" in printed
+    assert f"step {STEPS}: " in printed
+    saved = torch.load(out_x / "checkpoints" / str(STEPS) / ckpt.FILE, weights_only=True)
+    assert saved["step"] == STEPS == ckpt.latest_step(out_x / "checkpoints")
+    assert {float(e["step"]) for e in saved["opt_state"]["state"].values()} == {STEPS}
+
+
 def test_step_tracker_drives_the_bounded_sampler(tmp_path):
     """The dataset reads the sampler's step from the tracker at each draw:
     its examples equal those of a dataset whose step is fixed there, and the
