@@ -109,6 +109,26 @@ Phases (any failure ends in a non-zero exit and no result line):
      learning_rate(cfg, 1234)) through the fused pair, then the port's own
      step 1236 the latest; (e) checkpointing.pretrained_model at it: weights
      only, step 0;
+  3r. training and evaluation across ranks (parallel/), after phase 4 and
+     with the earlier phases' tensors released, (c)'s and (d)'s ranks
+     started first and waiting for their go while (a) and (b) run: (a) a
+     flagship view band-sharded over 2, 4 and 8 emulated ranks against
+     render_erp_views (colour and depth at the JAX package's bars, alpha
+     within the kernels' exit, 1e-4), then the encoder's Gaussians
+     of one HM3D-width request into 4 target views band-sharded over 2, 4
+     and 8 emulated ranks (render_erp_sharded with Emulated(k)), one fused
+     forward launch a band and view, the views against render_erp_views,
+     every band of one view (the lightest) bit-equal to the plain version,
+     the kernel's ms a band and their balance; (b) a cube-supervision step's render and loss
+     with the faces over 2 and 4 emulated face ranks, outputs and Gaussian
+     gradients against render_cube_views; (c) two torchrun ranks sharing the
+     card over gloo (chip_smoke.py --rank-run): hm3d.yaml's mode=train at
+     batch 2 on a data grid 2x1 with a band-sharded validation, the
+     all-reduced step-1 gradients against single-process B = 2 steps taken
+     first in this process, then cube supervision with train.shard_faces at
+     batch 1 on a (data, face) grid 1x2; each rank's ms a step and peak
+     memory; (d) one torchrun rank over NCCL: mode=train with both shard
+     flags, mode=test, a band-sharded view over the one-rank group;
   4. time each kernel and its plain version with CUDA events, the unfused
      path's pack and scatter apart, the fused kernels on the 3-view inputs,
      and the serving render stage by stage; both backward kernels at their
@@ -123,9 +143,10 @@ Phases (any failure ends in a non-zero exit and no result line):
 It prints a JSON line of the CLI evaluation (3l), one of the CLI training
 (3m), one of the options and the scan compositor (3n), one of the mono
 branch (3o), one of the warm start and the videos (3p), one of the JAX
-package's checkpoints and shards (3q), one of per-kernel numbers (the ERP
-path's, the cube path's under cube_*, and the launches of 3m's, 3n's,
-3o's, 3p's and 3q's runs), the nvidia-smi line, and as its last
+package's checkpoints and shards (3q), one of the ranks (3r), one of
+per-kernel numbers (the ERP path's, the cube path's under cube_*, and the
+launches of 3m's, 3n's, 3o's, 3p's, 3q's and 3r's runs), the nvidia-smi
+line, and as its last
 line
 {"ok": true, "device": {...}}.
 """
@@ -134,9 +155,11 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import hashlib
 import importlib.util
 import json
 import math
+import os
 import shutil
 import subprocess
 import sys
@@ -1802,10 +1825,10 @@ def train_run(label, argv, device="cuda", restore_check=None):
                  ckpt.save_checkpoint, ckpt.restore_checkpoint)
     step_fn, prefetcher, val_run, save, restore = originals
 
-    def timed_step(state, batch):
+    def timed_step(state, batch, **kw):
         sync()
         t0 = time.perf_counter()
-        out = step_fn(state, batch)
+        out = step_fn(state, batch, **kw)
         sync()
         rec["step_ms"].append((state.step, 1e3 * (time.perf_counter() - t0)))
         return out
@@ -3188,8 +3211,8 @@ def phase_orbax_resume(seed, root: Path, fixture):
     lrs = []
     step_fn = trainer.train_step
 
-    def lr_step(state, batch):
-        out_metrics = step_fn(state, batch)
+    def lr_step(state, batch, **kw):
+        out_metrics = step_fn(state, batch, **kw)
         lrs.append((state.step - 1, state.optimizer.param_groups[0]["lr"]))
         return out_metrics
 
@@ -3262,6 +3285,652 @@ def phase_orbax_pretrained(seed, root: Path, fixture):
     print(f"  (e) step 0, {len(params)} tensors bit-equal to the converted tree", flush=True)
     tr.pop("printed", None)
     return tr
+
+
+# phase 3r: training and evaluation across ranks (parallel/)
+# (a) the emulated band ranks, (b) the emulated face ranks
+BAND_RANKS, FACE_RANKS = (2, 4, 8), (2, 4)
+# (a), (b), (d): a sharded render against the unsharded one, at the bars the
+# JAX package holds its own sharded renders to (tests/test_render_sharding.py:
+# colour and alpha 2e-5, depth 1e-4), but for (a)'s alpha. A band bins a
+# splat by its box clamped to the band's rows, which can put it in another
+# tier of assign_tiles (the fast tier takes no elliptical cull), so a band's
+# tile lists hold instances the gate turns away; they move the tile's early
+# exit by a block (ROADMAP Queue 3). (a)'s random-encoder views read 5.4e-5
+# to 5.5e-5 on an H100 in colour and alpha together, and 0.26 with the
+# splats taller than the tiling's spans, which (a) zeroes on both sides
+SHARD_RGB_TOL, SHARD_DEPTH_TOL = 2e-5, 1e-4
+# (a)'s alpha: a tile's walk ends after the first block past which every
+# pixel's T is below 1e-4 (the kernels' exit), and no weight is taken past
+# T (1 - alpha) < 1e-4, so where the extra gated instances of a band move
+# the exit by a block, alpha (1 - T) may differ by up to 1e-4 and colour by
+# nothing more than reassociation (9.2e-5 read on an H100 on the flagship
+# scene at 2, 4 and 8 bands, colour and alpha together, against 2e-5)
+BAND_ALPHA_TOL = 1e-4
+# (c), (d): steps of each run under torchrun, and its time limit (s)
+RANK_STEPS, RANK_TIMEOUT = 2, 400
+
+
+def band_inp(asg, attrs, band_h):
+    """compare_kernel_plain's inputs of one band (band_inputs' outputs)."""
+    return dict(attrs=attrs, gidx=asg.gaussian_idx[None], tile_ids=asg.tile_ids[None],
+                starts=asg.tile_starts[None], counts=asg.tile_counts[None],
+                nty=asg.num_tiles_y, ntx=asg.num_tiles_x, shape=(band_h, W), wrap=True,
+                dropped=[int(asg.dropped)])
+
+
+def hm3d_gaussians(seed, gen):
+    """hm3d.yaml's model (bf16, seeded) on one request: its 1,048,576
+    Gaussians (no gradient) and the request."""
+    from splatter360_tpu_torch.models.encoder import HM3D
+    from splatter360_tpu_torch.serve import build_model, encode
+
+    model = build_model(HM3D, seed=seed, device="cuda")
+    r = request_data(gen)
+    with torch.no_grad():
+        gaussians, _ = encode(model, r["image"], r["ctx_pose"], r["near"], r["far"])
+    del model
+    torch.cuda.empty_cache()
+    if gaussians.means.shape[1] != N_CTX * H * W:
+        raise AssertionError(f"{gaussians.means.shape[1]} Gaussians")
+    return gaussians, r
+
+
+def fit_tile_spans(leaves, views):
+    """Which Gaussians fit the tiling's spans in every view: an ERP splat
+    taller than SPAN_H tile rows is binned into its first SPAN_H rows only
+    (ops/tiling.py, as in the JAX package), and a band clamps the box to its
+    own rows first, so a band render covers such a splat further down than
+    the unsharded render (ROADMAP Queue 3)."""
+    from splatter360_tpu_torch.ops.projection import project_erp
+    from splatter360_tpu_torch.ops.tiling import SPAN_H, TILE_H
+
+    means, covs, _, opac = leaves
+    fits = torch.ones_like(opac, dtype=torch.bool)
+    with torch.no_grad():
+        for c2w in views:
+            p = project_erp(means, covs, c2w, (H, W), 0.1, opacities=opac)
+            v, ry = p.mean2d[:, 1], p.radius[:, 1]
+            top = torch.floor((v - ry) / TILE_H).clamp(0, H // TILE_H - 1)
+            bottom = torch.floor((v + ry) / TILE_H).clamp(0, H // TILE_H - 1)
+            fits &= ~p.valid | (bottom - top + 1 <= SPAN_H)
+    return fits
+
+
+def view_distance(outs, ref):
+    """Max |a - b| of colour, alpha and depth between render_erp_sharded's
+    views `outs` and render_erp_views' `ref` (one batch)."""
+    return tuple(max(float((getattr(o, name) - getattr(ref, name)[0, v]).abs().max())
+                     for v, o in enumerate(outs)) for name in ("color", "alpha", "depth"))
+
+
+@phase("3r (a). band-sharded ERP decode over 2, 4 and 8 emulated ranks, HM3D width")
+def phase_band_ranks(seed):
+    """First a view of the flagship scene (bench_scene, whose splats fit
+    the tiling's spans) band-sharded over each k of BAND_RANKS against
+    render_erp_views: colour at SHARD_RGB_TOL, alpha at BAND_ALPHA_TOL, depth
+    at SHARD_DEPTH_TOL. Then the encoder's
+    Gaussians of one request into N_TGT 512x1024 views,
+    each band-sharded over k emulated ranks (render_erp_sharded with
+    Emulated(k)): one fused forward launch a band and view; every band of
+    one view through the kernel and its plain version bit for bit, with the
+    kernel's ms a band, their balance (max / mean) and the whole view's
+    kernel ms, on the view whose heaviest tile holds the fewest blocks (the
+    plain version walks a band to its heaviest tile's last block, and a
+    random encoder piles ~1,200 blocks into a tile). The views against
+    render_erp_views at the same bars, with the splats taller than the
+    tiling's spans
+    (fit_tile_spans) at zero opacity on both sides (bands render more of
+    them; the distance with them is printed)."""
+    from splatter360_tpu_torch.models.types import Gaussians
+    from splatter360_tpu_torch.ops.cuda import composite as comp
+    from splatter360_tpu_torch.parallel import render_sharding as prs
+    from splatter360_tpu_torch.parallel.mesh import Emulated
+    from splatter360_tpu_torch.serve import render_erp_views
+
+    # the flagship scene, whose splats fit the tiling's spans: one view over
+    # each k against render_erp_views at the JAX package's own bars
+    flagship = bench_scene(seed, N_CTX * H * W)
+    eye = torch.eye(4, device="cuda")
+    nf = [torch.full((1, 1), v, device="cuda") for v in (0.1, 10.0)]
+    flagship_oversized = int((~fit_tile_spans(flagship, [eye])).sum())
+    with torch.no_grad():
+        flagship_ref = render_erp_views(Gaussians(*(x[None] for x in flagship)), eye[None, None],
+                                        *nf, (H, W), render_depth=True)
+    flagship_res, flagship_launches = {}, 0
+    for k in BAND_RANKS:
+        comp.launch_counts[comp.KERNEL_NAME] = 0
+        with torch.no_grad():
+            o = prs.render_erp_sharded(*flagship, eye, (H, W), Emulated(k), near=0.1,
+                                       render_depth=True)
+        flagship_launches += comp.launch_counts[comp.KERNEL_NAME]
+        flagship_res[k] = view_distance([o], flagship_ref)
+    print(f"3r (a) the flagship scene ({flagship_oversized} splats past the tiling's spans) "
+          f"over 2, 4 and 8 bands against render_erp_views (colour / alpha / depth): "
+          + ", ".join(f"{k} bands {c:.2e} / {a:.2e} / {d:.2e}"
+                      for k, (c, a, d) in flagship_res.items())
+          + f"; bars {SHARD_RGB_TOL} / {BAND_ALPHA_TOL} / {SHARD_DEPTH_TOL}", flush=True)
+    if any(c > SHARD_RGB_TOL or a > BAND_ALPHA_TOL or d > SHARD_DEPTH_TOL
+           for c, a, d in flagship_res.values()):
+        raise AssertionError("the flagship scene's bands differ from render_erp_views")
+    del flagship, flagship_ref, o
+
+    gaussians, r = hm3d_gaussians(seed, torch.Generator(device="cuda").manual_seed(seed + 80))
+    leaves = [x[0] for x in gaussians]
+    views = list(r["tgt_pose"][0])
+    fits = fit_tile_spans(leaves, views)
+    fitting = [*leaves[:3], leaves[3] * fits]
+    refs = {}
+    with torch.no_grad():
+        for name, g in (("all", leaves), ("fitting", fitting)):
+            refs[name] = render_erp_views(Gaussians(*(x[None] for x in g)), r["tgt_pose"],
+                                          r["tgt_near"], r["tgt_far"], (H, W), render_depth=True)
+    oversized = int((~fits).sum())
+    heaviest = comp.segment_blocks(*(target_inputs(gaussians, views)[k]
+                                     for k in ("starts", "counts"))).max(dim=1).values
+    v0 = int(heaviest.argmin())
+    whole_ms = time_cuda(fwd_calls(target_inputs(gaussians, views[v0:v0 + 1]))[0], iters=5)
+    res = dict(launches={k: 0 for k in comp.launch_counts}, ranks={}, whole_view_ms=whole_ms,
+               err=0.0, oversized=oversized, view=v0,
+               heaviest_tile_blocks=[int(x) for x in heaviest],
+               flagship=dict(oversized=flagship_oversized, err=flagship_res))
+    res["launches"][comp.KERNEL_NAME] += flagship_launches
+    for k in BAND_RANKS:
+        comm = Emulated(k)
+        for name in comp.launch_counts:
+            comp.launch_counts[name] = 0
+        with torch.no_grad():
+            outs = [prs.render_erp_sharded(*leaves, c2w, (H, W), comm, near=0.1,
+                                           render_depth=True) for c2w in views]
+        torch.cuda.synchronize()
+        launched = dict(comp.launch_counts)
+        want = {name: (k * N_TGT if name == comp.KERNEL_NAME else 0) for name in launched}
+        if launched != want:
+            raise AssertionError(f"{k} ranks: launches {launched}, expected {want}")
+        for name, n in launched.items():
+            res["launches"][name] += n
+        if not all(bool(torch.isfinite(o.color).all()) for o in outs):
+            raise AssertionError(f"{k} ranks: non-finite colour")
+        all_err = view_distance(outs, refs["all"])
+        with torch.no_grad():
+            outs = [prs.render_erp_sharded(*fitting, c2w, (H, W), comm, near=0.1,
+                                           render_depth=True) for c2w in views]
+        cerr, aerr, derr = view_distance(outs, refs["fitting"])
+        err = max(cerr, aerr)
+        if cerr > SHARD_RGB_TOL or aerr > BAND_ALPHA_TOL or derr > SHARD_DEPTH_TOL:
+            raise AssertionError(f"{k} ranks: the assembled views differ from render_erp_views "
+                                 f"by {cerr:.3e} (colour), {aerr:.3e} (alpha), {derr:.3e} "
+                                 f"(depth)")
+        del outs
+        starts, rows, band_h = prs.band_layout(H, k)
+        with torch.no_grad():
+            table = prs.packed_table(*leaves, views[v0], (H, W), comm, near=0.1)
+        bands = []
+        for b in range(k):
+            with torch.no_grad():
+                asg, attrs = prs.band_inputs(table, starts[b], rows[b], band_h, W)
+            inp = band_inp(asg, attrs, band_h)
+            e, stats = compare_kernel_plain(inp, f"3r (a) {k} ranks, band {b} (tile rows "
+                                                 f"{starts[b]}+{rows[b]}) of view {v0}",
+                                            exact=True)
+            bands.append(dict(rows=rows[b], ms=time_cuda(fwd_calls(inp)[0], iters=5),
+                              plain_ms=stats["plain_ms"], bound_ms=bound_ms(inp, stats)[0],
+                              instances=int(asg.tile_counts.sum()), err=e))
+        ms = [b["ms"] for b in bands]
+        res["ranks"][k] = dict(bands=bands, view_err=err, colour_err=cerr, alpha_err=aerr,
+                               depth_err=derr, all_err=all_err,
+                               band_ms_max=max(ms), band_ms_mean=float(np.mean(ms)),
+                               balance=max(ms) / float(np.mean(ms)))
+        res["err"] = max(res["err"], *(b["err"] for b in bands))
+        print(f"3r (a) {k} ranks: bands (tile rows) {list(rows)} of view {v0} (heaviest tiles "
+              f"of the 4 views {res['heaviest_tile_blocks']} blocks), kernel ms a band "
+              f"{[round(x, 3) for x in ms]} (max {max(ms):.3f}, mean {np.mean(ms):.3f}, "
+              f"balance {max(ms) / np.mean(ms):.3f}; the whole view {whole_ms:.3f} ms); "
+              f"views against render_erp_views (colour / alpha / depth) {cerr:.2e} / "
+              f"{aerr:.2e} / {derr:.2e} without the {oversized} splats past the tiling's "
+              f"spans ({' / '.join(f'{x:.2e}' for x in all_err)} with them); launches "
+              f"{launched}", flush=True)
+        del table
+    return res
+
+
+@phase("3r (b). face-sharded cube supervision over 2 and 4 emulated ranks, HM3D width")
+def phase_face_ranks(seed):
+    """A cube-supervision step's render and loss (remat_faces, the MSE of
+    N_TGT views' 6 faces against the target faces) on the encoder's
+    Gaussians, the faces split over k emulated face ranks
+    (render_cube_views_face_sharded): outputs at SHARD_*_TOL and the
+    Gaussians' gradients, summed over the ranks, at GRAD_TOL and L2_TOL,
+    against render_cube_views."""
+    from splatter360_tpu_torch.models.decoder import render_cube_views
+    from splatter360_tpu_torch.models.types import Gaussians
+    from splatter360_tpu_torch.ops.cuda import composite as comp
+    from splatter360_tpu_torch.parallel.mesh import Emulated
+    from splatter360_tpu_torch.parallel.render_sharding import render_cube_views_face_sharded
+    from splatter360_tpu_torch.serve import context_cubes
+    from splatter360_tpu_torch.train.losses import mse_loss
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 81)
+    gaussians, r = hm3d_gaussians(seed, gen)
+    tgt = torch.rand((1, N_TGT, H, W, 3), generator=gen, device="cuda")
+    gt = context_cubes(tgt, FACE)
+    args = (r["tgt_pose"], r["tgt_near"], r["tgt_far"], (FACE, FACE))
+
+    def step(k):
+        leaves = [x.detach().requires_grad_(True) for x in gaussians]
+        for name in comp.launch_counts:
+            comp.launch_counts[name] = 0
+        if k == 1:
+            out = render_cube_views(Gaussians(*leaves), *args, render_depth=True,
+                                    remat_faces=True)
+        else:
+            out = render_cube_views_face_sharded(Gaussians(*leaves), *args, Emulated(k),
+                                                 render_depth=True, remat_faces=True)
+        mse_loss(out.color, gt).backward()
+        torch.cuda.synchronize()
+        return out, [x.grad for x in leaves], dict(comp.launch_counts)
+
+    ref, ref_g, _ = step(1)
+    res = dict(launches={k: 0 for k in comp.launch_counts}, ranks={}, err=0.0)
+    for k in FACE_RANKS:
+        out, grads, launched = step(k)
+        # a rank's slice of the item is one launch, rendered again in the backward
+        want = {name: {comp.KERNEL_NAME: 2 * k, comp.BWD_KERNEL_NAME: k}.get(name, 0)
+                for name in launched}
+        if launched != want:
+            raise AssertionError(f"{k} face ranks: launches {launched}, expected {want}")
+        for name, n in launched.items():
+            res["launches"][name] += n
+        err = max(float((out.color - ref.color).abs().max()),
+                  float((out.alpha - ref.alpha).abs().max()))
+        derr = float((out.depth - ref.depth).abs().max())
+        rows = {}
+        for name, g, g_ref in zip(Gaussians._fields, grads, ref_g):
+            rows[name] = (float((g - g_ref).abs().max() / g_ref.abs().max()),
+                          float(torch.linalg.norm(g - g_ref) / torch.linalg.norm(g_ref)))
+        print(f"3r (b) {k} face ranks ({N_TGT * 6 // k} faces of {FACE}x{FACE} a rank): outputs "
+              f"{err:.2e} / depth {derr:.2e}; gradients (max / L2 relative) "
+              + ", ".join(f"{n} {a:.2e} / {b:.2e}" for n, (a, b) in rows.items())
+              + f"; launches {launched}", flush=True)
+        if (err > SHARD_RGB_TOL or derr > SHARD_DEPTH_TOL
+                or any(a > GRAD_TOL or b > L2_TOL for a, b in rows.values())):
+            raise AssertionError(f"{k} face ranks disagree with render_cube_views")
+        res["ranks"][k] = dict(err=err, depth_err=derr, grads=rows)
+        res["err"] = max(res["err"], err)
+    return res
+
+
+def batch_digest(batch) -> str:
+    """sha256 of a batch's context and target arrays, in key order."""
+    h = hashlib.sha256()
+    for part in ("context", "target"):
+        for k in sorted(batch[part]):
+            h.update(np.ascontiguousarray(batch[part][k]).tobytes())
+    return h.hexdigest()
+
+
+def rank_run(spec_path):
+    """One rank under torchrun (chip_smoke.py --rank-run spec.json): the
+    process group first (maybe_initialize_distributed), then the go of
+    torchrun_finish (a file), then each CLI argv
+    of the spec through main(), instrumented from outside the port: each
+    step's ms (synchronized), the first batch's digest, the step-1
+    gradients the optimizer took (spec "grads"), launches and peak memory
+    a run; with spec "band_check", a 512x1024 view of the flagship scene
+    band-sharded over the world group against render_erp_views. Writes
+    rank<r>.json (and grads<r>.pt) under spec "out"."""
+    import torch.distributed as dist
+
+    import splatter360_tpu_torch.train.trainer as trainer
+    from splatter360_tpu_torch.main import main as cli_main
+    from splatter360_tpu_torch.ops.cuda import composite as comp
+    from splatter360_tpu_torch.parallel.mesh import Group, maybe_initialize_distributed
+
+    spec = json.loads(Path(spec_path).read_text())
+    out = Path(spec["out"])
+    dev = maybe_initialize_distributed("cuda")
+    rank = dist.get_rank()
+    # started early: the runs begin at torchrun_finish's go
+    waited = time.perf_counter()
+    while not (out / "go").exists():
+        if time.perf_counter() - waited > RANK_TIMEOUT:
+            raise SystemExit(f"rank {rank}: no go within {RANK_TIMEOUT} s")
+        time.sleep(0.1)
+    rec = dict(rank=rank, world=dist.get_world_size(), backend=dist.get_backend(),
+               device=str(dev), runs=[])
+    step_fn = trainer.train_step
+    for i, argv in enumerate(spec["runs"]):
+        run = dict(argv=argv, step_ms=[], batch=None)
+
+        def timed(state, batch, **kw):
+            if run["batch"] is None:
+                run["batch"] = batch_digest(batch)
+            grads = {}
+
+            def keep(stage):
+                if stage == "backward":
+                    grads.update({k: p.grad.detach().cpu() for k, p in
+                                  state.model.named_parameters() if p.grad is not None})
+
+            capture = spec.get("grads") and i == 0 and state.step == 0
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            metrics = step_fn(state, batch, on_stage=keep if capture else None, **kw)
+            torch.cuda.synchronize(dev)
+            run["step_ms"].append(1e3 * (time.perf_counter() - t0))
+            if capture:
+                torch.save(grads, out / f"grads{rank}.pt")
+            return metrics
+
+        for k in comp.launch_counts:
+            comp.launch_counts[k] = 0
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        trainer.train_step = timed
+        t0 = time.perf_counter()
+        try:
+            result = cli_main(list(argv))
+        finally:
+            trainer.train_step = step_fn
+        run.update(wall_s=time.perf_counter() - t0, launches=dict(comp.launch_counts),
+                   peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30)
+        if isinstance(result, dict):
+            run["scores"] = result
+        else:
+            run["step"] = result.step
+            del result
+        rec["runs"].append(run)
+    if spec.get("band_check"):
+        from splatter360_tpu_torch.parallel.render_sharding import render_erp_sharded
+        from splatter360_tpu_torch.serve import render_erp_views
+
+        means, covs, sh, opac = bench_scene(spec["seed"], N_CTX * H * W)
+        from splatter360_tpu_torch.models.types import Gaussians
+
+        g = Gaussians(means[None], covs[None], sh[None], opac[None])
+        c2w = torch.eye(4, device=dev)
+        for k in comp.launch_counts:
+            comp.launch_counts[k] = 0
+        with torch.no_grad():
+            got = render_erp_sharded(means, covs, sh, opac, c2w, (H, W), Group(), near=0.1,
+                                     render_depth=True)
+            launched = dict(comp.launch_counts)
+            ref = render_erp_views(g, c2w[None, None], torch.full((1, 1), 0.1, device=dev),
+                                   torch.full((1, 1), 10.0, device=dev), (H, W),
+                                   render_depth=True)
+        rec["band_check"] = dict(
+            launches=launched,
+            err=max(float((got.color - ref.color[0, 0]).abs().max()),
+                    float((got.alpha - ref.alpha[0, 0]).abs().max())),
+            depth_err=float((got.depth - ref.depth[0, 0]).abs().max()))
+    (out / f"rank{rank}.json").write_text(json.dumps(rec))
+    dist.destroy_process_group()
+
+
+# the torchrun sessions started, stopped at the script's end
+RANK_RUNS: list = []
+
+
+def torchrun_start(label, root: Path, spec: dict, nproc: int) -> dict:
+    """chip_smoke.py --rank-run under torchrun with nproc ranks on this
+    machine's card(s), started now: the ranks start their process group,
+    then wait for torchrun_finish's go, so that their start overlaps this
+    process's work. Their output goes to root/<label>.log."""
+    out = root / label
+    out.mkdir(parents=True)
+    spec = dict(spec, out=str(out))
+    (out / "spec.json").write_text(json.dumps(spec))
+    log = root / f"{label}.log"
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc_per_node={nproc}", str(Path(__file__).resolve()), "--rank-run",
+           str(out / "spec.json")]
+    f = open(log, "w")
+    proc = subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT,
+                            cwd=Path(__file__).resolve().parent, start_new_session=True)
+    run = dict(label=label, proc=proc, file=f, log=log, out=out, nproc=nproc,
+               t0=time.perf_counter())
+    RANK_RUNS.append(run)
+    return run
+
+
+def stop_rank_runs() -> None:
+    """Kill the whole session of every torchrun still running."""
+    import signal
+
+    for run in RANK_RUNS:
+        if run["proc"].poll() is None:
+            os.killpg(run["proc"].pid, signal.SIGKILL)
+            run["proc"].wait()
+        run["file"].close()
+
+
+def torchrun_finish(run: dict) -> list:
+    """Let the ranks of torchrun_start's `run` go, wait for them (their whole
+    session killed at RANK_TIMEOUT), print the tail of their output and
+    return each rank's record."""
+    import signal
+
+    (run["out"] / "go").write_text("")
+    t0 = time.perf_counter()
+    proc = run["proc"]
+    try:
+        rc = proc.wait(timeout=RANK_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+        rc = "timeout"
+    run["file"].close()
+    lines = run["log"].read_text().splitlines()
+    print(f"--- {run['label']}: {run['nproc']} rank(s), rc {rc}, {time.perf_counter() - t0:.1f} s "
+          f"after the go ({t0 - run['t0']:.1f} s after the start); the last lines of its "
+          f"output:\n" + "\n".join(lines[-25:]), flush=True)
+    if rc != 0:
+        raise AssertionError(f"{run['label']}: torchrun ended with {rc}")
+    return [json.loads((run["out"] / f"rank{r}.json").read_text()) for r in range(run["nproc"])]
+
+
+def start_rank_runs(seed, root: Path) -> dict:
+    """The scenes of 3r (c) and (d), and their torchrun sessions started
+    (torchrun_start): (c) two ranks over gloo, (1) hm3d.yaml's mode=train at
+    trainer.batch_size=2 with a band-sharded validation, (2) cube supervision
+    with train.shard_faces at batch 1; (d) one rank over NCCL, mode=train on
+    cube supervision with both shard flags, then mode=test of its
+    checkpoint."""
+    data = root / "data"
+    cli_scenes(data, seed + 90, "train", 2, TRAIN_FRAMES)
+    cli_scenes(data, seed + 91, "val", 1, CLI_FRAMES)
+    base = [str(CONFIG), "mode=train", f"dataset.roots=[{data}]",
+            f"trainer.max_steps={RANK_STEPS}", "trainer.print_log_every_n_steps=1",
+            "trainer.num_sanity_val_steps=0", f"checkpointing.every_n_train_steps={RANK_STEPS}"]
+    # one torchrun (one start of the two processes) for both runs
+    c = torchrun_start("3r_c", root, dict(grads=True, runs=[
+        [*base, f"output_dir={root / 'c1'}", "trainer.batch_size=2",
+         f"trainer.val_check_interval={RANK_STEPS}", "train.shard_render=true"],
+        [*base, f"output_dir={root / 'c2'}", "trainer.batch_size=1", "train.supervision=cubes",
+         "train.shard_faces=true", "train.remat_faces=true", "trainer.val_check_interval=0"]]), 2)
+    d_data, d_out = root / "d_data", root / "d"
+    cli_scenes(d_data, seed + 92, "train", 1, TRAIN_FRAMES)
+    cli_scenes(d_data, seed + 93, "test", 1, CLI_FRAMES)
+    common = [str(CONFIG), f"dataset.roots=[{d_data}]", "train.shard_render=true",
+              "train.shard_faces=true", "train.supervision=cubes"]
+    d = torchrun_start("3r_d_nccl", root, dict(seed=seed, band_check=True, runs=[
+        [*common, "mode=train", f"output_dir={d_out}", "trainer.batch_size=1",
+         f"trainer.max_steps={RANK_STEPS}", "trainer.num_sanity_val_steps=0",
+         "trainer.val_check_interval=0", f"checkpointing.every_n_train_steps={RANK_STEPS}"],
+        [*common, "mode=test", f"checkpointing.load={d_out / 'checkpoints'}",
+         f"test.output_path={d_out / 'test'}"]]), 1)
+    return dict(data=data, c=c, d=d)
+
+
+def release_memory(*results):
+    """Drop the tensors the results of earlier phases hold (their inputs for
+    phase 4), then return the freed memory to the card, so that 3r's ranks
+    find it."""
+    import gc
+
+    def drop(x):
+        if isinstance(x, dict):
+            for k in list(x):
+                v = x[k]
+                if torch.is_tensor(v) or hasattr(v, "_fields") or (
+                        isinstance(v, (tuple, list)) and any(torch.is_tensor(e) for e in v)):
+                    del x[k]
+                else:
+                    drop(v)
+
+    for res in results:
+        drop(res)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def grad_distance(got: dict, ref: dict) -> tuple[float, float]:
+    """Over all leaves: max |got - ref| / max |ref| and mean |got - ref| /
+    mean |ref|."""
+    diff = torch.cat([(got[k] - ref[k]).abs().flatten() for k in ref])
+    size = torch.cat([ref[k].abs().flatten() for k in ref])
+    return float(diff.max() / size.max()), float(diff.mean() / size.mean())
+
+
+@phase("3r (c). two torchrun ranks sharing the card over gloo: data grid 2x1, (data, face) grid 1x2")
+def phase_two_ranks(seed, root: Path, started: dict):
+    """hm3d.yaml's mode=train on 2 ranks of one card (gloo: two ranks share
+    it): (1) trainer.batch_size=2 (one example a rank), RANK_STEPS steps and a
+    band-sharded validation (train.shard_render) at the last; (2) cube
+    supervision with train.shard_faces at batch 1, a 1x2 (data, face) grid
+    (the example's 24 faces, 12 a rank), remat_faces on (the ranks were
+    started by start_rank_runs). Before their go, this process takes the single-process steps the ranks'
+    step 1 is held against, on the same global batch: bf16 at B = 2 twice
+    (their distance printed beside) and, for the policy's own distance,
+    float32 and bf16 at B = 1 on the first example; then it releases their
+    memory. The ranks' all-reduced step-1 gradients (bit-equal across
+    ranks) against the bf16 B = 2 step: within BF16_RATIO x the policy's
+    distance by max and BF16_MEAN_RATIO x by mean."""
+    from dataclasses import replace
+
+    from splatter360_tpu_torch.config import load_config
+    from splatter360_tpu_torch.data.dataset import SceneDataset, batches
+    from splatter360_tpu_torch.train.state import create_train_state, mono_grid, train_step
+
+    if started is None:
+        raise AssertionError("the ranks were not started")
+    data = started["data"]
+    cfg = load_config(str(CONFIG), [f"dataset.roots=[{data}]"])
+    # each rank's first batch: its shard of the train split, seeded + rank
+    firsts = [next(batches(SceneDataset(cfg.dataset, split="train", stage="train",
+                                        seed=cfg.trainer.seed + r, shard_index=r, num_shards=2),
+                           1)) for r in range(2)]
+    both = {p: {k: np.concatenate([b[p][k] for b in firsts]) for k in firsts[0][p]}
+            for p in ("context", "target")}
+
+    def single(model_cfg, batch):
+        state = create_train_state(model_cfg, cfg.train, seed=cfg.trainer.seed, device="cuda",
+                                   mono_grid=mono_grid(cfg.train, H))
+        grads = {}
+
+        def keep(stage):
+            if stage == "backward":
+                grads.update({k: p.grad.detach().cpu() for k, p in
+                              state.model.named_parameters() if p.grad is not None})
+
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = train_step(state, batch, on_stage=keep)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        del state
+        release_memory()
+        return grads, {k: float(v) for k, v in metrics.items()}, ms, peak
+
+    g_a, m_a, ms_a, peak_a = single(cfg.model, both)
+    g_b, _, ms_b, _ = single(cfg.model, both)
+    first = {p: {k: v[:1] for k, v in both[p].items()} for p in both}
+    g_bf1, _, _, _ = single(cfg.model, first)
+    g_f1, _, _, _ = single(replace(cfg.model, bf16_compute=False), first)
+    repeat = grad_distance(g_b, g_a)
+    policy = grad_distance(g_bf1, g_f1)
+    print(f"3r (c) single process, B = 2 bf16: steps {ms_a:.1f} / {ms_b:.1f} ms (the first "
+          f"autotunes), peak {peak_a:.2f} GiB; two runs apart by {repeat[0]:.2e} (max) / "
+          f"{repeat[1]:.2e} (mean) of |g|; the bf16 policy (B = 1, bf16 against float32) "
+          f"{policy[0]:.2e} / {policy[1]:.2e}", flush=True)
+    del g_b, g_bf1, g_f1
+    release_memory()
+
+    ranks = torchrun_finish(started["c"])
+    for rk in ranks:
+        if rk["backend"] != "gloo":
+            raise AssertionError(f"rank {rk['rank']} on {rk['backend']}, not gloo")
+    res = dict(single=dict(ms=[ms_a, ms_b], peak_gib=peak_a, metrics=m_a, repeat=repeat,
+                           policy=policy), ranks={}, launches={})
+    for i, label in enumerate(("data grid 2x1", "(data, face) grid 1x2")):
+        runs = [rk["runs"][i] for rk in ranks]
+        for run in runs:
+            if len(run["step_ms"]) != RANK_STEPS or run["step"] != RANK_STEPS:
+                raise AssertionError(f"{label}: steps {run['step_ms']}")
+            for name, n in run["launches"].items():
+                res["launches"][name] = res["launches"].get(name, 0) + n
+        res["ranks"][label] = [dict(step_ms=run["step_ms"], peak_gib=run["peak_gib"],
+                                    wall_s=run["wall_s"], launches=run["launches"])
+                               for run in runs]
+        print(f"3r (c) {label}: " + "; ".join(
+            f"rank {r}: ms a step {[round(x, 1) for x in run['step_ms']]}, peak "
+            f"{run['peak_gib']:.2f} GiB, {run['wall_s']:.1f} s, launches {run['launches']}"
+            for r, run in enumerate(runs)), flush=True)
+    if [rk["runs"][0]["batch"] for rk in ranks] != [batch_digest(b) for b in firsts]:
+        raise AssertionError("the ranks' first batches are not the shards' first batches")
+    checkpoints = sorted(p.name for p in (root / "c1" / "checkpoints").iterdir())
+    if checkpoints != [str(RANK_STEPS)] or not (
+            root / "c1" / "val" / f"{RANK_STEPS:08d}" / "comparison.png").is_file():
+        raise AssertionError(f"data grid: checkpoints {checkpoints}, or no validation written")
+    g0, g1 = (torch.load(root / "3r_c" / f"grads{r}.pt") for r in range(2))
+    if g0.keys() != g_a.keys() or not all(torch.equal(g0[k], g1[k]) for k in g0):
+        raise AssertionError("the ranks' all-reduced gradients differ")
+    dp = grad_distance(g0, g_a)
+    res["data_parallel"] = dp
+    print(f"3r (c) step 1's all-reduced gradients against the single-process B = 2 step: "
+          f"{dp[0]:.2e} (max) / {dp[1]:.2e} (mean) of |g|; bars {BF16_RATIO} x "
+          f"{policy[0]:.2e} / {BF16_MEAN_RATIO} x {policy[1]:.2e} (the bf16 policy's); two "
+          f"single-process runs {repeat[0]:.2e} / {repeat[1]:.2e}", flush=True)
+    if dp[0] > BF16_RATIO * policy[0] or dp[1] > BF16_MEAN_RATIO * policy[1]:
+        raise AssertionError("the two-rank step's gradients are past the bf16 bars")
+    return res
+
+
+@phase("3r (d). NCCL at world size 1: mode=train with both shard flags, mode=test")
+def phase_nccl_one_rank(seed, root: Path, started: dict):
+    """One torchrun rank (NCCL: it has the card to itself): mode=train on
+    hm3d.yaml with cube supervision, train.shard_faces and train.shard_render
+    (a 1x1 grid, the flags off as in JAX; the broadcast and barriers run on
+    NCCL), mode=test of its checkpoint on one scene, then a flagship view
+    band-sharded over the one-rank world group (NCCL's all_gather and
+    all_reduce) against render_erp_views."""
+    if started is None:
+        raise AssertionError("the rank was not started")
+    (rk,) = torchrun_finish(started["d"])
+    train, test = rk["runs"]
+    band = rk["band_check"]
+    print(f"3r (d) backend {rk['backend']} on {rk['device']}: train steps ms "
+          f"{[round(x, 1) for x in train['step_ms']]}, peak {train['peak_gib']:.2f} GiB, launches "
+          f"{train['launches']}; mode=test {test['wall_s']:.1f} s, scores {test['scores']}, "
+          f"launches {test['launches']}; a band-sharded flagship view on 1 rank against "
+          f"render_erp_views {band['err']:.2e} / depth {band['depth_err']:.2e}, launches "
+          f"{band['launches']}", flush=True)
+    if rk["backend"] != "nccl" or train["step"] != RANK_STEPS:
+        raise AssertionError(f"(d): backend {rk['backend']}, step {train['step']}")
+    scores = next(iter(test["scores"].values()))
+    if not all(math.isfinite(v) for v in scores.values()):
+        raise AssertionError(f"(d): non-finite scores {scores}")
+    if band["err"] > SHARD_RGB_TOL or band["depth_err"] > SHARD_DEPTH_TOL:
+        raise AssertionError("(d): the band-sharded view differs from render_erp_views")
+    launches = {}
+    for run in (train, test, band):
+        for name, n in run["launches"].items():
+            launches[name] = launches.get(name, 0) + n
+    return dict(launches=launches, train=dict(step_ms=train["step_ms"],
+                                              peak_gib=train["peak_gib"]),
+                test_s=test["wall_s"], band=band)
 
 
 @phase("4. timing")
@@ -3389,11 +4058,16 @@ def phase_timing(check, serve, bcheck, train, ucheck, ubcheck, serve3, train3, p
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--rank-run", help="run as one torchrun rank of phase 3r (a spec file)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         sys.exit(1)
     import splatter360_tpu_torch  # noqa: F401  (fails outside a checkout)
+
+    if args.rank_run:
+        rank_run(args.rank_run)
+        return
 
     smi = smi_line()
     print(f"card: {smi}", flush=True)
@@ -3463,6 +4137,23 @@ def main():
     print(f"phase 3q took {orbax_s:.1f} s", flush=True)
     rows = phase_timing(check, serve, bcheck, train, ucheck, ubcheck, serve3, train3, pin,
                         cserve, ctrain, cremat) or {}
+    release_memory(check, serve, bcheck, train, ucheck, ubcheck, serve3, train3, pin, cserve,
+                   ctrain, cremat, cli, cli_train, options, mono, backbone, videos)
+    t_ranks = time.perf_counter()
+    ranks_root = Path(tempfile.mkdtemp(prefix="splat360_ranks_"))
+    try:
+        # (c)'s and (d)'s ranks start while (a) and (b) run
+        started = start_rank_runs(args.seed, ranks_root)
+        bands = phase_band_ranks(args.seed)
+        faces = phase_face_ranks(args.seed)
+        release_memory()
+        two_ranks = phase_two_ranks(args.seed, ranks_root, started)
+        one_rank = phase_nccl_one_rank(args.seed, ranks_root, started)
+    finally:
+        stop_rank_runs()
+        shutil.rmtree(ranks_root, ignore_errors=True)
+    ranks_s = time.perf_counter() - t_ranks
+    print(f"phase 3r took {ranks_s:.1f} s", flush=True)
     # each path's own kernels, counted over its own run
     fused = ("composite_forward_fused", "composite_backward_fused")
     unfused = ("composite_forward_unfused", "composite_backward_unfused")
@@ -3492,7 +4183,11 @@ def main():
             ("CLI with pretrained_backbone and save_video", backbone_cli or None, fused),
             ("trajectory videos at HM3D width", videos or None, fused[:1]),
             ("mode=test of the JAX package's orbax checkpoint", orbax_eval, fused[:1]),
-            ("mode=train resumed from the orbax checkpoint", orbax_resume, fused)):
+            ("mode=train resumed from the orbax checkpoint", orbax_resume, fused),
+            ("band-sharded ERP decode over emulated ranks (3r a)", bands, fused[:1]),
+            ("face-sharded cube supervision over emulated ranks (3r b)", faces, fused),
+            ("two torchrun ranks over gloo (3r c)", two_ranks, fused),
+            ("one torchrun rank over NCCL (3r d)", one_rank, fused)):
         if res is None:
             failures.append(f"{label} run missing")
         elif min(res["launches"].get(k, 0) for k in names) == 0:
@@ -3515,7 +4210,11 @@ def main():
         over phase 3p (c)'s three videos and, for the fused forward,
         video_frame_ms, its bound and its plain version's ms on one spin
         frame; orbax_launches over phase 3q (c-d)'s (mode=test of the JAX
-        package's orbax checkpoint, the steps resumed from it)."""
+        package's orbax checkpoint, the steps resumed from it);
+        parallel_launches over phase 3r's (the band-sharded decodes of (a),
+        the face-sharded renders of (b), and every rank's runs in (c) and
+        (d)) and, for the fused forward, band_ms_max / band_ms_mean at 8
+        emulated band ranks."""
         ctrain = cli_train["b" if "unfused" in name else "a"]
         return dict(name=name, route="cuda", source=f"splatter360_tpu_torch/csrc/{source}",
                     replaces=f"splatter360_tpu/ops/pallas/composite.py:{replaces}",
@@ -3533,6 +4232,11 @@ def main():
                     video_launches=videos["launches"][name],
                     orbax_launches=orbax_eval["launches"][name]
                     + orbax_resume["launches"][name],
+                    parallel_launches=sum(r["launches"].get(name, 0)
+                                          for r in (bands, faces, two_ranks, one_rank)),
+                    **({"band_ms_max": bands["ranks"][8]["band_ms_max"],
+                        "band_ms_mean": bands["ranks"][8]["band_ms_mean"]}
+                       if name == "composite_forward_fused" else {}),
                     **({"video_frame_ms": videos["kernel_ms"],
                         "video_frame_bound_ms": videos["bound_ms"],
                         "video_frame_plain_ms": videos["plain_ms"]}
@@ -3549,7 +4253,8 @@ def main():
 
     kernels = [
         row("composite_forward_fused", "composite_fwd.cu", 370, serve,
-            max(check["err"], serve["err"], pin[N_CTX]["err"], cserve[N_CTX]["err"]),
+            max(check["err"], serve["err"], pin[N_CTX]["err"], cserve[N_CTX]["err"],
+                bands["err"]),
             rows["serving 4 views"], cserve[N_CTX], rows["cube serving 24 faces"]),
         row("composite_backward_fused", "composite_bwd.cu", 517, train,
             max(bcheck["err"], train["err"], pin[N_CTX]["bwd"]["err"], ctrain[N_CTX]["err"],
@@ -3579,6 +4284,8 @@ def main():
     print(json.dumps({"orbax": dict(zstd_loader=zstd_loader, fixture=fixture, eval=orbax_eval,
                                     resume=orbax_resume, pretrained=orbax_pretrained,
                                     seconds=orbax_s), "card": smi}, default=str))
+    print(json.dumps({"ranks": dict(bands=bands, faces=faces, two=two_ranks, one=one_rank,
+                                    seconds=ranks_s), "card": smi}, default=str))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -16,6 +16,15 @@ file and dotted overrides (config.py), then runs the mode:
     <output_dir>/gt into <output_dir>/metrics.
 Everything runs on the card; the CPU is used only when asked for
 (`--device cpu`, or main(argv, device="cpu")), never as a fallback.
+
+Under torchrun (`python -m torch.distributed.run --nproc_per_node=K -m
+splatter360_tpu_torch.main ...`) the process group starts before any mode
+(parallel/mesh.maybe_initialize_distributed), each rank on its own card
+(cuda:LOCAL_RANK), and ends with the run. mode=train trains across the
+ranks (train/trainer.py); mode=test runs on every rank with
+train.shard_render (its ERP decodes band-sharded over them) and on rank 0
+alone without it; generate_index and compute_metrics run on rank 0. Only
+rank 0 writes.
 """
 
 from __future__ import annotations
@@ -25,9 +34,11 @@ import sys
 from pathlib import Path
 
 import torch
+import torch.distributed as dist
 
 from .config import load_config
-from .device import resolve_device
+from .parallel.mesh import Group, maybe_initialize_distributed, rank
+from .parallel.render_sharding import shards_erp
 
 
 def main(argv=None, device: str | torch.device = "cuda"):
@@ -40,8 +51,16 @@ def main(argv=None, device: str | torch.device = "cuda"):
     if argv and "=" not in argv[0]:
         path = argv.pop(0)
     cfg = load_config(path, argv)
-    dev = resolve_device(device)
+    started = not dist.is_initialized()
+    dev = maybe_initialize_distributed(device)
+    try:
+        return _run(cfg, dev)
+    finally:
+        if started and dist.is_initialized():
+            dist.destroy_process_group()
 
+
+def _run(cfg, dev: torch.device):
     if cfg.mode == "train":
         from .train.trainer import Trainer
 
@@ -53,6 +72,9 @@ def main(argv=None, device: str | torch.device = "cuda"):
         from .train.lpips import make_lpips_fn
         from .train.state import create_train_state, mono_grid
 
+        comm = Group() if dist.is_initialized() else None
+        if not (shards_erp(cfg, comm) or rank() == 0):
+            return {}
         if next(iter(SceneDataset(cfg.dataset, split="test", stage="test")), None) is None:
             raise SystemExit("no test scenes found")
         state = create_train_state(cfg.model, cfg.train, seed=0, device=dev,
@@ -60,12 +82,13 @@ def main(argv=None, device: str | torch.device = "cuda"):
         ckpt_dir = ckpt.resolve_checkpoint_uri(cfg.checkpointing.load) or str(
             Path(cfg.output_dir) / "checkpoints")
         state, ok = ckpt.restore_weights_only(ckpt_dir, state)
-        if ok:
-            print(f"restored the weights of {ckpt.describe(ckpt_dir)} from {ckpt_dir}")
-        else:
-            print("warning: no checkpoint restored; evaluating random weights")
+        if rank() == 0:
+            print(f"restored the weights of {ckpt.describe(ckpt_dir)} from {ckpt_dir}" if ok
+                  else "warning: no checkpoint restored; evaluating random weights")
         return Evaluator(cfg, state, lpips_fn=make_lpips_fn(cfg.train.loss.lpips_weights, dev),
-                         device=dev).run()
+                         device=dev, comm=comm).run()
+    if cfg.mode in ("generate_index", "compute_metrics") and rank() != 0:
+        return None
     if cfg.mode == "generate_index":
         from .evaluation.index_generator import IndexGeneratorConfig, generate_index
 

@@ -19,10 +19,14 @@ export, only a failed write of the files is printed and skipped: a render
 failure propagates.
 
 The metrics are computed on the device; only what is written moves to the
-host. Band-sharded decoding (`shard_render`) acts as off on one device, as
-in JAX, and across cards is not ported (ROADMAP.md Queue 1 item 4). The
-state's encoder is the one to score: with add_mono_feat its ViT comes from
-the checkpoint, and no warm start is made here (nor in JAX's Evaluator).
+host. With train.shard_render and a `comm` of more than one rank
+(parallel/mesh.py), every ERP decode, the scored views' and the video
+frames', is band-sharded over it (render_erp_views_sharded), as JAX's
+Evaluator does on a mesh: every rank encodes the same scenes and decodes
+alike, and only rank 0 scores, renders cube faces and writes. On one rank
+the flag acts as off, as in JAX. The state's encoder is the one to score:
+with add_mono_feat its ViT comes from the checkpoint, and no warm start is
+made here (nor in JAX's Evaluator).
 """
 
 from __future__ import annotations
@@ -39,6 +43,8 @@ from ..geometry.cubemap import erp_to_cube
 from ..geometry.transforms import interpolate_pose_6d, trajectory_spin, trajectory_wobble
 from ..models import decoder
 from ..models.encoder import apply_encoder
+from ..parallel.mesh import rank
+from ..parallel.render_sharding import decode_erp
 from ..serve import EVAL_GLOBAL_STEP, context_cubes
 from ..utils.benchmarker import Benchmarker
 from ..utils.image_io import apply_depth_colormap, hcat, save_image, save_video
@@ -49,18 +55,27 @@ _DEPTH_FACES = [0, 1, 2, 3, 5]
 
 
 class Evaluator:
-    def __init__(self, cfg, state, lpips_fn=None, device: str | torch.device = "cuda"):
+    def __init__(self, cfg, state, lpips_fn=None, device: str | torch.device = "cuda",
+                 comm=None):
         """cfg: config.RootConfig; state: train.state.TrainState (its encoder);
-        lpips_fn(pred, gt) -> [B] on `device`, or None for no LPIPS."""
+        lpips_fn(pred, gt) -> [B] on `device`, or None for no LPIPS; comm:
+        the ranks that share the ERP decodes under train.shard_render."""
         self.cfg = cfg
         self.state = state
         self.lpips_fn = lpips_fn
         self.device = resolve_device(device)
         set_f32_policy()
         self.benchmarker = Benchmarker(self.device)
+        self.comm = comm
+        self.is_main = rank() == 0
         self.out = Path(cfg.test.output_path)
-        self.out.mkdir(parents=True, exist_ok=True)
+        if self.is_main:
+            self.out.mkdir(parents=True, exist_ok=True)
         self.face = cfg.dataset.image_shape[0] // 2
+
+    def _decode_erp(self, gaussians, extr, near, far, render_depth=False):
+        return decode_erp(self.cfg, self.comm, gaussians, extr, near, far,
+                          render_depth=render_depth)
 
     def _to_device(self, views: dict) -> dict:
         return {k: torch.as_tensor(v, device=self.device) for k, v in views.items() if k != "index"}
@@ -68,7 +83,6 @@ class Evaluator:
     @torch.no_grad()
     def run(self, split: str = "test") -> dict:
         cfg = self.cfg
-        shape = tuple(cfg.dataset.image_shape)
         f = self.face
         scores: dict = {}
         for ex in SceneDataset(cfg.dataset, split=split, stage="test"):
@@ -83,10 +97,16 @@ class Evaluator:
                                              EVAL_GLOBAL_STEP)
             v_t = tgt["image_sphere"].shape[1]
             with self.benchmarker.time("decoder", num_calls=v_t):
-                out = decoder.render_erp_views(gaussians, tgt["extrinsics_sphere"], tgt["near"],
-                                               tgt["far"], shape, render_depth=cfg.test.eval_depth,
-                                               backend=cfg.train.render_backend)
-            n_drop = int(out.dropped.sum())
+                out = self._decode_erp(gaussians, tgt["extrinsics_sphere"], tgt["near"],
+                                       tgt["far"], render_depth=cfg.test.eval_depth)
+            if not self.is_main:
+                if cfg.test.save_video:  # its frames are decoded by every rank
+                    self.render_video(gaussians, ctx["extrinsics_sphere"][0],
+                                      float(tgt["near"][0, 0]), float(tgt["far"][0, 0]), None,
+                                      trajectory=cfg.test.video_trajectory,
+                                      with_depth=cfg.test.eval_depth)
+                continue
+            n_drop = int(out.dropped.sum()) if out.dropped is not None else 0
             if n_drop > 0:
                 print(f"warning: {scene}: {n_drop} splats dropped by emission-cap overflow — "
                       f"rendered images are degraded")
@@ -133,7 +153,8 @@ class Evaluator:
                                   float(tgt["near"][0, 0]), float(tgt["far"][0, 0]),
                                   self.out / scene / f"{traj}.mp4", trajectory=traj,
                                   with_depth=cfg.test.eval_depth)
-        self.finalize(scores, skip=cfg.test.eval_time_skip_steps)
+        if self.is_main:
+            self.finalize(scores, skip=cfg.test.eval_time_skip_steps)
         return scores
 
     @torch.no_grad()
@@ -147,8 +168,9 @@ class Evaluator:
         interpolates. Each frame is its own render call of one view, as in
         JAX. With `with_depth`, also `<stem>_depth.mp4`: depth / max(alpha,
         1e-6), colour-mapped between the whole video's least and greatest
-        depth. A failed write is printed and skipped."""
-        shape = tuple(self.cfg.dataset.image_shape)
+        depth. A failed write is printed and skipped. Under a band-sharded
+        decode every rank renders the frames and the main rank writes them
+        (the others pass path None)."""
         nf = [torch.full((1, 1), v, device=ctx_extr.device) for v in (near, far)]
         first, last = ctx_extr[0], ctx_extr[-1]
         radius = 0.25 * float(np.linalg.norm((last[:3, 3] - first[:3, 3]).cpu().numpy()))
@@ -160,13 +182,15 @@ class Evaluator:
                 pose = trajectory_spin(first, float(t))
             else:
                 pose = interpolate_pose_6d(first, last, float(t))
-            out = decoder.render_erp_views(gaussians, pose[None, None], *nf, shape,
-                                           render_depth=with_depth,
-                                           backend=self.cfg.train.render_backend)
+            out = self._decode_erp(gaussians, pose[None, None], *nf, render_depth=with_depth)
+            if path is None:
+                continue
             frames.append(out.color[0, 0].cpu().numpy())
             if with_depth:
                 depths.append(out.depth[0, 0].cpu().numpy()
                               / np.maximum(out.alpha[0, 0].cpu().numpy(), 1e-6))
+        if path is None:
+            return
         path = Path(path)
         try:
             save_video(frames, path)

@@ -59,21 +59,30 @@ def erode(mask: torch.Tensor, ksize: int = 5) -> torch.Tensor:
     return 1.0 - max_pool_dilate(1.0 - mask, ksize)
 
 
-def sin_weighted_depth_l1(
+def depth_l1_terms(
     pred_depth: torch.Tensor,  # [B, V, H, W] encoder-predicted ERP depth
     gt_depth: torch.Tensor,    # [B, V, H, W] ground-truth ERP depth (0 = hole)
     far: torch.Tensor,         # [B, V]
     hole_threshold: float = 0.1,
-) -> torch.Tensor:
-    """sin(phi)-weighted L1 over the hole mask (> 0.1 m) eroded 5x5, with
-    holes set to far."""
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """sin_weighted_depth_l1's numerator and denominator: the weighted L1
+    sum and the weight sum over the whole batch."""
     h = pred_depth.shape[-2]
     mask = erode((gt_depth > hole_threshold).to(pred_depth.dtype), 5)
     gt = torch.where(mask > 0.5, gt_depth, far[..., None, None])
     rows = torch.arange(h, dtype=pred_depth.dtype, device=pred_depth.device)
     sin_phi = torch.sin((rows + 0.5) * math.pi / h)[None, None, :, None]
     weight = sin_phi * mask
-    num = torch.sum(torch.abs(gt - pred_depth) * weight)
-    den = torch.clamp(torch.sum(weight), min=1e-10)
-    return num / den
+    return torch.sum(torch.abs(gt - pred_depth) * weight), torch.sum(weight)
 
+
+def sin_weighted_depth_l1(
+    pred_depth: torch.Tensor,
+    gt_depth: torch.Tensor,
+    far: torch.Tensor,
+    hole_threshold: float = 0.1,
+) -> torch.Tensor:
+    """sin(phi)-weighted L1 over the hole mask (> 0.1 m) eroded 5x5, with
+    holes set to far (depth_l1_terms' arguments)."""
+    num, den = depth_l1_terms(pred_depth, gt_depth, far, hole_threshold)
+    return num / torch.clamp(den, min=1e-10)

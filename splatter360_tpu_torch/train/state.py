@@ -21,7 +21,11 @@ W, 3], extrinsics_sphere [B, V, 4, 4], depth_sphere [B, V, H, W], near, far
 [B, V]}, "target": {image_sphere, extrinsics_sphere, near, far}}. The
 encoder runs under its config's precision policy (models/encoder.
 apply_encoder: float32, or bf16 compute over float32 master parameters);
-everything else computes in float32 with TF32 off.
+everything else computes in float32 with TF32 off. Across ranks
+(parallel/mesh.py), `train_step(state, batch, grid=grid)` takes this
+rank's share of the global batch and averages the gradients over the ranks
+before the clip; with train.shard_faces the cube faces are split over the
+grid's face ranks (parallel/render_sharding.py).
 """
 
 from __future__ import annotations
@@ -38,8 +42,10 @@ from ..models import decoder
 from ..models.dino import token_grid
 from ..models.encoder import EncoderConfig, EncoderCostVolume360, apply_encoder
 from ..ops.rasterizer import BACKENDS
+from ..parallel.mesh import RankGrid
+from ..parallel.render_sharding import render_cube_views_face_sharded
 from ..serve import build_model, context_cubes
-from .losses import LossConfig, mse_loss, sin_weighted_depth_l1, sin_weighted_mse
+from .losses import LossConfig, depth_l1_terms, mse_loss, sin_weighted_mse
 from .lpips import LPIPS, init_lpips, load_lpips_torch_weights
 from .metrics import compute_psnr
 
@@ -72,36 +78,20 @@ class TrainConfig:
     # render each target view's 6 faces again in the backward instead of
     # keeping their activations (torch.utils.checkpoint); hm3d.yaml sets False
     remat_faces: bool = True
-    # band- and face-sharded renders across cards: off on one device, as in
-    # JAX (check_devices)
+    # band-sharded ERP decodes of validation and mode=test across all ranks,
+    # and cube supervision's faces split over a (data, face) rank grid
+    # (parallel/): each acts as off where its axis has one rank, as in JAX
     shard_render: bool = False
     shard_faces: bool = False
 
 
 def check_ported(train_cfg: TrainConfig) -> None:
-    """Raise ValueError for an unknown supervision or render backend.
-    shard_render and shard_faces load: on one device the JAX package runs
-    them as off, and so does the port (check_devices)."""
+    """Raise ValueError for an unknown supervision or render backend."""
     if train_cfg.supervision not in ("cubes", "erp"):
         raise ValueError(f"supervision={train_cfg.supervision!r}: expected 'cubes' or 'erp'")
     if train_cfg.render_backend not in BACKENDS:
         raise ValueError(f"render_backend={train_cfg.render_backend!r}: expected one of "
                          f"{BACKENDS}")
-
-
-def check_devices(train_cfg: TrainConfig, device: torch.device) -> None:
-    """shard_render and shard_faces shard across cards in JAX when there are
-    several, and act as off on one (evaluator.py:53, trainer.py:76; a 1x1
-    (data, face) mesh). The port runs on one device: the flags are off on
-    the CPU and on one card, and raise NotImplementedError where more than
-    one card is visible, since it would have to shard there."""
-    if device.type != "cuda" or torch.cuda.device_count() <= 1:
-        return
-    for flag in ("shard_faces", "shard_render"):
-        if getattr(train_cfg, flag):
-            raise NotImplementedError(
-                f"train.{flag}=True with {torch.cuda.device_count()} cards: sharding across "
-                f"cards is not ported (ROADMAP.md Queue 1 item 4)")
 
 
 def mono_grid(train_cfg: TrainConfig, image_height: int) -> int:
@@ -183,7 +173,6 @@ def create_train_state(encoder_cfg: EncoderConfig, train_cfg: TrainConfig, seed:
     and a step counter at 0, on `device`."""
     check_ported(train_cfg)
     dev = resolve_device(device)
-    check_devices(train_cfg, dev)
     set_f32_policy()
     model = build_model(encoder_cfg, seed=seed, device=dev, state_dict=state_dict,
                         mono_grid=mono_grid).train()
@@ -209,10 +198,15 @@ def _on_device(batch: Mapping, dev: torch.device) -> dict:
 
 
 def compute_losses(state: TrainState, batch: Mapping,
-                   on_stage: Optional[Callable[[str], None]] = None):
+                   on_stage: Optional[Callable[[str], None]] = None,
+                   grid: Optional[RankGrid] = None):
     """The JAX compute_losses: (total loss, metrics). `on_stage(name)`, if
     given, is called after "encoder", "render" and "losses" (chip_smoke.py
-    records CUDA events there)."""
+    records CUDA events there). With train.shard_faces and a `grid` whose
+    face axis has more than one rank, the cube faces are rendered
+    face-sharded over it (JAX's use_face_shard): every rank of the face group
+    gets all the faces and computes the same loss, the mean over all v*6
+    faces of its examples."""
     mark = on_stage or (lambda name: None)
     dev = next(state.model.parameters()).device
     batch = _on_device(batch, dev)
@@ -225,11 +219,13 @@ def compute_losses(state: TrainState, batch: Mapping,
         ctx["extrinsics_sphere"], ctx["near"], ctx["far"], state.step)
     mark("encoder")
     if tcfg.supervision == "cubes":
-        rendered = decoder.render_cube_views(gaussians, tgt["extrinsics_sphere"], tgt["near"],
-                                             tgt["far"], (face, face),
-                                             remat_faces=tcfg.remat_faces,
-                                             backend=tcfg.render_backend,
-                                             max_per_tile=tcfg.max_per_tile)
+        args = (gaussians, tgt["extrinsics_sphere"], tgt["near"], tgt["far"], (face, face))
+        kw = dict(remat_faces=tcfg.remat_faces, backend=tcfg.render_backend,
+                  max_per_tile=tcfg.max_per_tile)
+        if tcfg.shard_faces and grid is not None and grid.n_face > 1:
+            rendered = render_cube_views_face_sharded(*args, grid.face, **kw)
+        else:
+            rendered = decoder.render_cube_views(*args, **kw)
         gt = context_cubes(tgt["image_sphere"], face)
         loss_mse = mse_loss(rendered.color, gt)
         img_shape = (face, face)
@@ -258,7 +254,15 @@ def compute_losses(state: TrainState, batch: Mapping,
         total = total + lcfg.lpips_weight * lp
         metrics["loss_lpips"] = lp
     if not tcfg.wo_depth_supervise and lcfg.depth_weight > 0:
-        ld = sin_weighted_depth_l1(pred_depth, ctx["depth_sphere"], ctx["far"])
+        num, den = depth_l1_terms(pred_depth, ctx["depth_sphere"], ctx["far"])
+        if grid is not None and grid.n_data > 1:
+            # JAX divides by the weight of the whole global batch, whose
+            # examples' hole masks differ: each rank takes n_data * its sum
+            # over that, and train_step's mean over the ranks gives JAX's
+            # loss (a face group's ranks hold the same examples)
+            (den,) = grid.world.all_reduce([den.detach()])
+            num, den = num * grid.n_data, den / grid.n_face
+        ld = num / torch.clamp(den, min=1e-10)
         total = total + lcfg.depth_weight * ld
         metrics["loss_depth"] = ld
     metrics["loss"] = total
@@ -267,18 +271,35 @@ def compute_losses(state: TrainState, batch: Mapping,
 
 
 def train_step(state: TrainState, batch: Mapping,
-               on_stage: Optional[Callable[[str], None]] = None) -> dict[str, torch.Tensor]:
+               on_stage: Optional[Callable[[str], None]] = None,
+               grid: Optional[RankGrid] = None) -> dict[str, torch.Tensor]:
     """One update of `state` in place (parameters, Adam moments, step + 1).
     Returns the metrics of the step: loss, loss_mse, loss_lpips, loss_depth,
     psnr, dropped and grad_norm (of the unclipped gradients). `on_stage` is
-    also called after "backward" and "optimizer"."""
+    also called after "backward" and "optimizer".
+
+    Across ranks (`grid`, parallel/mesh.create_rank_grid), `batch` is this
+    rank's share of the global batch: the gradients are averaged over the
+    ranks between the backward and the clip, in one flat buffer, as XLA's
+    psum precedes optax's clip, and so are the metrics (dropped summed over
+    the data ranks), so every rank takes the same update."""
     mark = on_stage or (lambda name: None)
     state.optimizer.zero_grad(set_to_none=True)
-    loss, metrics = compute_losses(state, batch, on_stage)
+    loss, metrics = compute_losses(state, batch, on_stage, grid)
     loss.backward()
-    mark("backward")
     ocfg = state.train_cfg.optimizer
-    grads = [p.grad for p in state.model.parameters() if p.grad is not None]
+    params = [p for p in state.model.parameters() if p.grad is not None]
+    if grid is not None and grid.world.size > 1:
+        # the ranks of a face group hold the same gradients, so the mean over
+        # all ranks is the mean over the data ranks
+        for p, g in zip(params, grid.world.all_reduce([p.grad for p in params], mean=True)):
+            p.grad.copy_(g)
+        names = sorted(metrics)
+        reduced = grid.world.all_reduce([metrics[k].detach().float() for k in names], mean=True)
+        metrics = dict(zip(names, reduced))
+        metrics["dropped"] = metrics["dropped"] * grid.n_data
+    mark("backward")
+    grads = [p.grad for p in params]
     metrics["grad_norm"] = clip_by_global_norm_(grads, ocfg.grad_clip)
     lr = learning_rate(ocfg, state.step)
     for group in state.optimizer.param_groups:
