@@ -46,7 +46,7 @@ Phases (any failure ends in a non-zero exit and no result line):
      its plain version on the last step's face inputs), and a GPU against a
      CPU cube train step on a small input, fused then unfused;
   3l. the CLI's evaluation mode (python -m splatter360_tpu_torch.main
-     configs/hm3d.yaml mode=test ...) on 3 seeded 512x1024 test scenes with a
+     configs/hm3d.yaml mode=test ...) on 2 seeded 512x1024 test scenes with a
      saved checkpoint of the flagship model, bf16 compute from the file: 2
      context panoramas scored on ERP, then on cube faces, then 3 context
      panoramas; every artefact written, finite scores, the weights restored,
@@ -72,7 +72,8 @@ Phases (any failure ends in a non-zero exit and no result line):
      Gaussian a pixel and the unfused pair for 2 (N = 2,097,152), with
      encoder ms, step ms and peak memory; the epipolar block's own memory;
      (b) each group's tiny f32 encoder and train step on the card against
-     the CPU (3b's and 3d's bars; a leaf past them only as one jump); (c) the
+     the CPU (3b's and 3d's bars; a leaf past them only as one jump), the
+     CPU steps in worker processes started before (a); (c) the
      CLI, mode=train then mode=test, on hm3d.yaml with biproj, the
      epipolar block and 2 Gaussians a pixel; (d) configs/synthetic_smoke.yaml
      as written (render_backend jax) through mode=train and mode=test, every
@@ -109,14 +110,30 @@ Phases (any failure ends in a non-zero exit and no result line):
      learning_rate(cfg, 1234)) through the fused pair, then the port's own
      step 1236 the latest; (e) checkpointing.pretrained_model at it: weights
      only, step 0;
+  3s. generated scenes (preprocess/): (a) the batched dense compositor
+     (ops/rasterizer_ref.composite_dense) on a 32x64 frame of a small room
+     and a 512x1024 frame of a default one, bit-equal to the walk over one
+     Gaussian at a time it replaced on the card, and at 32x64 within
+     DENSE_ULPS of it on the CPU, the walk without the transmittance cut
+     past that bar; at 512x1024 walk_chunks_in_order (each chunk's
+     Gaussians in order, no move of the live ones to the front) bit-equal
+     and timed beside it; (b) python -m
+     splatter360_tpu_torch.preprocess at HM3D width, 2 train and 1 test
+     scenes of 12 512x1024 frames at the default spacing (~19k Gaussians a
+     room) with --validate, ms a frame, s a scene, retries, peak memory, and
+     one frame through the cube rig against the direct frame; (c)
+     hm3d.yaml's mode=train (2 steps, the fused pair) on the generated train
+     scenes, then mode=test (the fused forward) of its checkpoint on the test
+     scene; (d) render_projections of the test scene's room at 256x256, the
+     card against the CPU;
   3r. training and evaluation across ranks (parallel/), after phase 4 and
      with the earlier phases' tensors released, (c)'s and (d)'s ranks
      started first and waiting for their go while (a) and (b) run: (a) a
-     flagship view band-sharded over 2, 4 and 8 emulated ranks against
+     flagship view band-sharded over 2 and 8 emulated ranks against
      render_erp_views (colour and depth at the JAX package's bars, alpha
      within the kernels' exit, 1e-4), then the encoder's Gaussians
-     of one HM3D-width request into 4 target views band-sharded over 2, 4
-     and 8 emulated ranks (render_erp_sharded with Emulated(k)), one fused
+     of one HM3D-width request into 4 target views band-sharded over 2 and
+     8 emulated ranks (render_erp_sharded with Emulated(k)), one fused
      forward launch a band and view, the views against render_erp_views,
      every band of one view (the lightest) bit-equal to the plain version,
      the kernel's ms a band and their balance; (b) a cube-supervision step's render and loss
@@ -132,9 +149,9 @@ Phases (any failure ends in a non-zero exit and no result line):
   4. time each kernel and its plain version with CUDA events, the unfused
      path's pack and scatter apart, the fused kernels on the 3-view inputs,
      and the serving render stage by stage; both backward kernels at their
-     training shapes, on the last step's Gaussians and on the first step's,
-     and both forward kernels on the flagship scene, the serving inputs and
-     the same train steps' Gaussians, for each span of SPANS in turns (None:
+     training shapes, on the last step's Gaussians, and both forward
+     kernels on the flagship scene, the serving inputs and the same train
+     steps' Gaussians, for each span of SPANS in turns (None:
      one span a tile), with the blocks each tile walks (forward: in its
      segment and processed), the warps' visits per block, the time with
      every tile capped at 64 blocks, and the blocks the forward's first pass
@@ -143,9 +160,10 @@ Phases (any failure ends in a non-zero exit and no result line):
 It prints a JSON line of the CLI evaluation (3l), one of the CLI training
 (3m), one of the options and the scan compositor (3n), one of the mono
 branch (3o), one of the warm start and the videos (3p), one of the JAX
-package's checkpoints and shards (3q), one of the ranks (3r), one of
-per-kernel numbers (the ERP path's, the cube path's under cube_*, and the
-launches of 3m's, 3n's, 3o's, 3p's, 3q's and 3r's runs), the nvidia-smi
+package's checkpoints and shards (3q), one of the generated scenes (3s),
+one of the ranks (3r), one of per-kernel numbers (the ERP path's, the cube
+path's under cube_*, and the launches of 3m's, 3n's, 3o's, 3p's, 3q's, 3s's
+and 3r's runs), the nvidia-smi
 line, and as its last
 line
 {"ok": true, "device": {...}}.
@@ -175,8 +193,10 @@ H, W = 512, 1024
 N_CTX, N_TGT = 2, 4
 # context panoramas of the unfused path: N = 3*H*W is past the fused budget
 N_CTX3 = 3
-N_REQUESTS = 3
-N_STEPS = 3
+# requests and steps of the serving and training phases (3 until phase 3s
+# was added; 2 keeps the script inside its time limit)
+N_REQUESTS = 2
+N_STEPS = 2
 # the cube faces of HM3D width (TrainConfig.cube_face_size None: H // 2)
 FACE = H // 2
 # compositor tolerances: the bars the JAX package holds its two compositor
@@ -225,14 +245,14 @@ F64_RATIO = 1.25
 # tests/test_torch_train.py's JUMP_TOL leaf does for the ERP step
 CUBE_JUMP_TOL = {"backbone_erp.CNNEncoder_0.ResidualBlock_1.Conv_1.weight": 3.5e-3}
 # the spans timed in phase 4 (blocks of a heavy tile's segment or walk one
-# work item takes; None: one span a tile): the default and its two ends.
-# Spans 4 and 64, timed in earlier runs (PERF.md §6), are left out to keep
-# the script's time with phase 3q added
-SPANS = (1, 16, None)
+# work item takes; None: one span a tile): the default and one span a tile.
+# Spans 1, 4 and 64, timed in earlier runs (PERF.md §6), are left out to keep
+# the script's time with phases 3q and 3s added
+SPANS = (16, None)
 # phase 3l: the CLI's test scenes (frames each) and the bf16 encoder's bars
 # against the CPU (tests/test_torch_bf16.py's: through the whole random
 # encoder, rounding flips of another backend grow to the policy's own size)
-CLI_SCENES, CLI_FRAMES = 3, 12
+CLI_SCENES, CLI_FRAMES = 2, 12
 BF16_RATIO, BF16_MEAN_RATIO = 1.5, 1.25
 # phase 3m: the CLI's train scenes (24 frames let hm3d.yaml's initial context
 # gaps of 10-20 frames apply unclamped) and its runs' last steps
@@ -269,12 +289,19 @@ OPTION_GROUPS = {
 # 0.91-1.08 of the move at cosine 0.85-1.00.
 JUMP_LEAVES = ("backbone_cube.CNNEncoder_0.", "backbone_erp.CNNEncoder_0.")
 JUMP_RATIO, JUMP_COS, JUMP_NOISE_SEED = 1.2, 0.8, 10
+# 3n (b): the CPU halves of the groups' tiny train steps, then the 1e-6
+# noise steps jump_gaps may ask for, run in OPTION_WORKERS processes of
+# OPTION_THREADS threads each, started before 3n (a) so that they run while
+# the card takes 3n (a)'s HM3D-width steps (run in 3n (b) itself they saved
+# nothing: the host's cores were the limit). 3n (a)'s host-clock times are
+# taken beside them.
+OPTION_WORKERS, OPTION_THREADS = 3, 2
 # 3n (c): the CLI's option overrides on hm3d.yaml
 CLI_OPTIONS = ["model.fusion_type=biproj", "model.use_epipolar_trans=true",
                "model.gaussians_per_pixel=2"]
 # 3n (d): the repo's minimum end-to-end config, as written (render_backend jax)
 SMOKE_CONFIG = CONFIG.parent / "synthetic_smoke.yaml"
-SMOKE_STEPS = 2
+SMOKE_STEPS = 1
 # phase 3o: the mono branch (hm3d.yaml's model with add_mono_feat, ViT-S/14):
 # its token grid on the 256x256 faces (resized to 252), and the DINOv2
 # parameters a warm start copies: patch_embed (2), pos_embed, norm (2), and
@@ -1245,8 +1272,7 @@ def train_steps(seed, n_ctx, face=None, n_steps=N_STEPS, remat=False):
     and peak memory; then the backward kernel against its plain version on
     the last step's Gaussians rendered into its N_TGT target views (or their
     faces; under remat_faces the 6 faces of one view, one checkpointed
-    launch); on the ERP path the first step's Gaussians and backward inputs
-    kept for phase 4."""
+    launch)."""
     from splatter360_tpu_torch.models.encoder import HM3D_F32
     from splatter360_tpu_torch.ops.cuda import composite as comp
     from splatter360_tpu_torch.train.state import TrainConfig, create_train_state, train_step
@@ -1264,9 +1290,6 @@ def train_steps(seed, n_ctx, face=None, n_steps=N_STEPS, remat=False):
     state = create_train_state(HM3D_F32, cfg, seed=seed, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(seed + 3)
     batches = [train_batch(gen, n_ctx=n_ctx) for _ in range(n_steps)]
-    # the first step's Gaussians before any update, where the random weights
-    # pile instances into a few tiles (timed in phase 4)
-    first = step_inputs(state, batches[0], unfused) if face is None else None
     torch.cuda.synchronize()
     held = torch.cuda.memory_allocated() / 2**30
 
@@ -1355,11 +1378,7 @@ def train_steps(seed, n_ctx, face=None, n_steps=N_STEPS, remat=False):
         res = compare_unfused_bwd_plain(inp, label, seed + 4, comp.BWD_SPAN)
     else:
         res = compare_bwd_plain(inp, label, seed + 4, comp.BWD_SPAN)
-    if first is None:
-        return dict(steps=steps, launches=launches, inp=inp, **res)
-    first_args = (unfused_bwd_args if unfused else bwd_args)(first, seed + 4)
-    return dict(steps=steps, launches=launches, inp=inp, first=dict(inp=first, args=first_args),
-                **res)
+    return dict(steps=steps, launches=launches, inp=inp, **res)
 
 
 def step_inputs(state, batch, unfused, face=None, views=N_TGT):
@@ -1447,27 +1466,30 @@ def step_grads(cfg, tcfg, batch, seed, device, noise_seed=None):
     return {k: float(v) for k, v in metrics.items()}, grads, delta
 
 
-def small_train(seed, n_ctx, supervision="erp", options=None):
+def small_train(seed, n_ctx, supervision="erp", options=None, cpu_step=None):
     """A GPU and a CPU train step at 64x256 with n_ctx context panoramas
     from the same seeded weights and batch, ERP or cube supervision (32x32
     faces), the tiny encoder with the encoder `options` (phase 3n): the
     loss at 1e-3 relative, each leaf's gradient within GRAD_TOL of the
     global max|g|, the leaf CUBE_JUMP_TOL names (cube supervision only)
     within its bound; with `options`, a leaf past GRAD_TOL passes where
-    jump_gaps finds it to be one jump."""
+    jump_gaps finds it to be one jump. `cpu_step(noise_seed)`, where given,
+    returns the CPU step's (metrics, gradients) from elsewhere (a worker
+    process of phase 3n (b))."""
     from splatter360_tpu_torch.train.state import TrainConfig
 
     cfg = small_config(options)
     fwd_name, bwd_name = path_kernels(n_ctx * 64 * 256 * cfg.gaussians_per_pixel)
     batch = small_batch(seed, n_ctx)
     tcfg = TrainConfig(supervision=supervision, remat_faces=False)
-    out = {}
-    for dev in ("cpu", "cuda"):
-        metrics, grads, delta = step_grads(cfg, tcfg, batch, seed, dev)
-        if dev == "cuda" and delta != {k: int(k in (fwd_name, bwd_name)) for k in delta}:
-            raise AssertionError(f"GPU step: expected 1 {fwd_name} and 1 {bwd_name} call, "
-                                 f"got {delta}")
-        out[dev] = (metrics, grads)
+    if cpu_step is None:
+        cpu_step = lambda noise_seed: step_grads(  # noqa: E731
+            cfg, tcfg, batch, seed, "cpu", noise_seed)[:2]
+    metrics, grads, delta = step_grads(cfg, tcfg, batch, seed, "cuda")
+    if delta != {k: int(k in (fwd_name, bwd_name)) for k in delta}:
+        raise AssertionError(f"GPU step: expected 1 {fwd_name} and 1 {bwd_name} call, "
+                             f"got {delta}")
+    out = {"cpu": cpu_step(None), "cuda": (metrics, grads)}
     (m_cpu, g_cpu), (m_gpu, g_gpu) = out["cpu"], out["cuda"]
     print(f"  {n_ctx} context panoramas, {supervision} supervision, kernels {fwd_name}, "
           f"{bwd_name}; metrics cpu / gpu: "
@@ -1486,18 +1508,19 @@ def small_train(seed, n_ctx, supervision="erp", options=None):
         print(f"  leaf {k}: {stray[k]:.2e} of max|g| (bar {bars[k]:g})")
     stray = {k: d for k, d in stray.items() if d > bars.get(k, GRAD_TOL)}
     if options is not None and stray:
-        stray = jump_gaps(cfg, tcfg, batch, seed, g_cpu, g_gpu, scale, stray)
+        stray = jump_gaps(cpu_step, g_cpu, g_gpu, scale, stray)
     if rel_loss > 1e-3 or stray:
         raise AssertionError(f"GPU train step differs from the CPU one: {stray}")
 
 
-def jump_gaps(cfg, tcfg, batch, seed, g_cpu, g_gpu, scale, stray):
+def jump_gaps(cpu_step, g_cpu, g_gpu, scale, stray):
     """The leaves of `stray` (card - CPU past GRAD_TOL, of max|g|) that are
-    not one jump: the CPU step again with the parameters scaled by 1 + 1e-6
-    noise, and a leaf passes if it is a conv weight of a backbone's CNN
-    (JUMP_LEAVES) whose card - CPU distance is at most JUMP_RATIO times the
-    noisy step's move of it, at cosine >= JUMP_COS with that move."""
-    _, g_noise, _ = step_grads(cfg, tcfg, batch, seed, "cpu", JUMP_NOISE_SEED)
+    not one jump: the CPU step again (`cpu_step(JUMP_NOISE_SEED)`) with the
+    parameters scaled by 1 + 1e-6 noise, and a leaf passes if it is a conv
+    weight of a backbone's CNN (JUMP_LEAVES) whose card - CPU distance is at
+    most JUMP_RATIO times the noisy step's move of it, at cosine >= JUMP_COS
+    with that move."""
+    _, g_noise = cpu_step(JUMP_NOISE_SEED)
     left = {}
     for k, d in sorted(stray.items(), key=lambda x: -x[1]):
         gap, move = (g_gpu[k] - g_cpu[k]).flatten(), (g_noise[k] - g_cpu[k]).flatten()
@@ -2265,14 +2288,13 @@ def phase_options(seed):
 
 
 @phase("3n (b). the option groups' tiny encoders and train steps: GPU against CPU, float32")
-def phase_options_small(seed):
+def phase_options_small(seed, cpu_steps):
     """Per group, the tiny f32 encoder of phase 3b with the group's flags on
     the same seeded weights and request on the card and on the CPU: the
     outputs at 1e-3 of max|x| (3b's bar); then small_train's GPU and CPU
     ERP steps (3d's bars: the loss at 1e-3 relative, every leaf's gradient
-    at GRAD_TOL of the global max|g|, or one jump by jump_gaps)."""
-    from splatter360_tpu_torch.serve import build_model, encode
-
+    at GRAD_TOL of the global max|g|, or one jump by jump_gaps), the CPU
+    steps and jump_gaps' noise steps from `cpu_steps` (option_cpu_steps)."""
     rng = np.random.default_rng(seed)
     img = rng.uniform(0, 1, (1, 2, 64, 256, 3)).astype(np.float32)
     pose = np.tile(np.eye(4, dtype=np.float32), (1, 2, 1, 1))
@@ -2280,24 +2302,61 @@ def phase_options_small(seed):
     nf = (np.full((1, 2), 0.1, np.float32), np.full((1, 2), 10.0, np.float32))
     worst = {}
     for group, kw in OPTION_GROUPS.items():
-        enc = {}
-        for dev in ("cpu", "cuda"):
-            t = lambda x: torch.as_tensor(x, device=dev)  # noqa: E731
-            model = build_model(small_config(kw), seed=seed, device=dev)
-            g, d = encode(model, t(img), t(pose), t(nf[0]), t(nf[1]), device=dev)
-            enc[dev] = [x.cpu() for x in (*g, d)]
-        rels = [float((a - b).abs().max()) / (float(a.abs().max()) + 1e-12)
-                for a, b in zip(enc["cpu"], enc["cuda"])]
-        worst[group] = max(rels)
-        print(f"  {group}: encoder max|cpu-gpu|/max|cpu| "
-              + ", ".join(f"{n} {r:.2e}" for n, r in zip(
-                  ("means", "covariances", "harmonics", "opacities", "depth_map"), rels)),
-              flush=True)
-        if worst[group] > 1e-3:
-            raise AssertionError(f"{group}: GPU encoder differs from the CPU's "
-                                 f"({worst[group]:.2e})")
-        small_train(seed, N_CTX, options=kw)
+        option_group_small(seed, group, kw, img, pose, nf, worst,
+                           lambda noise, g=group: cpu_steps[g, noise].result())
     return worst
+
+
+@contextlib.contextmanager
+def option_cpu_steps(seed):
+    """Phase 3n (b)'s CPU steps submitted to OPTION_WORKERS processes: the
+    groups' steps, then their noise steps; {(group, noise seed or None):
+    future}. On leaving, what has not started is cancelled and the workers
+    are joined."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    pool = ProcessPoolExecutor(OPTION_WORKERS, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        yield {(g, noise): pool.submit(option_cpu_step, kw, seed, noise)
+               for noise in (None, JUMP_NOISE_SEED) for g, kw in OPTION_GROUPS.items()}
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+
+
+def option_cpu_step(options, seed, noise_seed):
+    """Phase 3n (b)'s CPU train step of the tiny encoder with `options`, in
+    a worker process: (metrics, gradients) of step_grads."""
+    from splatter360_tpu_torch.train.state import TrainConfig
+
+    torch.set_num_threads(OPTION_THREADS)
+    tcfg = TrainConfig(supervision="erp", remat_faces=False)
+    return step_grads(small_config(options), tcfg, small_batch(seed, N_CTX), seed, "cpu",
+                      noise_seed)[:2]
+
+
+def option_group_small(seed, group, kw, img, pose, nf, worst, cpu_step):
+    """One group of phase 3n (b): its tiny encoder on both devices, then
+    small_train with the CPU step from `cpu_step`."""
+    from splatter360_tpu_torch.serve import build_model, encode
+
+    enc = {}
+    for dev in ("cpu", "cuda"):
+        t = lambda x: torch.as_tensor(x, device=dev)  # noqa: E731
+        model = build_model(small_config(kw), seed=seed, device=dev)
+        g, d = encode(model, t(img), t(pose), t(nf[0]), t(nf[1]), device=dev)
+        enc[dev] = [x.cpu() for x in (*g, d)]
+    rels = [float((a - b).abs().max()) / (float(a.abs().max()) + 1e-12)
+            for a, b in zip(enc["cpu"], enc["cuda"])]
+    worst[group] = max(rels)
+    print(f"  {group}: encoder max|cpu-gpu|/max|cpu| "
+          + ", ".join(f"{n} {r:.2e}" for n, r in zip(
+              ("means", "covariances", "harmonics", "opacities", "depth_map"), rels)),
+          flush=True)
+    if worst[group] > 1e-3:
+        raise AssertionError(f"{group}: GPU encoder differs from the CPU's "
+                             f"({worst[group]:.2e})")
+    small_train(seed, N_CTX, options=kw, cpu_step=cpu_step)
 
 
 @phase("3n (c). the CLI with hm3d.yaml + biproj, use_epipolar_trans, gaussians_per_pixel=2: "
@@ -3287,9 +3346,338 @@ def phase_orbax_pretrained(seed, root: Path, fixture):
     return tr
 
 
+# phase 3s: generated scenes (preprocess/): the CLI's train and test scenes,
+# frames a scene, the room's Gaussian spacing (the generator's default,
+# ~19k Gaussians a room) and (a)'s small room
+GEN_TRAIN, GEN_TEST, GEN_FRAMES, GEN_SPACING = 2, 1, 12, 0.09
+GEN_SMALL = dict(seed=3, spacing=0.25, sh_degree=1)
+# (a): the card's batched compositor against the walk on the CPU, each plane
+# within DENSE_ULPS float32 ULPs of its max|x| (exp rounds differently on the
+# two devices); the walk without the transmittance cut (a contribution after
+# T falls below 1e-4), the control, must be past that bar
+DENSE_ULPS = 8
+# (b)'s cube-rig frame against the direct one on the central band: the JAX
+# package's bars (tests/test_preprocess.py:64-78)
+CUBE_COLOR_MAE, CUBE_DEPTH_MEDIAN_REL = 0.035, 0.05
+# (d): render_projections' panels card against CPU
+PROJ_RES = 256
+
+
+def walk_one_at_a_time(proj, colors, opacities, image_shape, background, wrap_x, depth_vals,
+                       t_cut=1e-4):
+    """The dense compositor (ops/rasterizer_ref.composite_dense) as it was
+    before it went in chunks: one step of full-image tensor ops a sorted
+    Gaussian, ~25 launches a step on the card; a Gaussian contributes while
+    T after it stays at or above `t_cut`."""
+    h, w = image_shape
+    order = torch.argsort(torch.where(proj.valid, proj.depth,
+                                      torch.full_like(proj.depth, math.inf)), stable=True)
+    mean2d, conic, col = proj.mean2d[order], proj.conic[order], colors[order]
+    op = torch.where(proj.valid, opacities, torch.zeros_like(opacities))[order]
+    dep, rad = depth_vals[order], proj.radius[order]
+    dev = mean2d.device
+    yy, xx = torch.meshgrid(torch.arange(h, dtype=mean2d.dtype, device=dev),
+                            torch.arange(w, dtype=mean2d.dtype, device=dev), indexing="ij")
+    rgb = torch.zeros((h, w, col.shape[-1]), device=dev)
+    trans, dacc = torch.ones((h, w), device=dev), torch.zeros((h, w), device=dev)
+    for m, cn, c, o, d, r in zip(mean2d, conic, col, op, dep, rad):
+        dx = xx - m[0]
+        if wrap_x:
+            dx = dx - w * torch.round(dx / w)
+        dy = yy - m[1]
+        power = -0.5 * (cn[0] * dx * dx + cn[2] * dy * dy) - cn[1] * dx * dy
+        alpha = torch.clamp(o * torch.exp(power), max=0.99)
+        inside = (torch.abs(dx) <= r[0]) & (torch.abs(dy) <= r[1])
+        alpha = torch.where(inside & (power > -4.5) & (power <= 0.0) & (alpha >= 1.0 / 255.0),
+                            alpha, torch.zeros_like(alpha))
+        trans_new = trans * (1.0 - alpha)
+        weight = torch.where(trans_new >= t_cut, alpha * trans, torch.zeros_like(alpha))
+        rgb = rgb + weight[..., None] * c
+        dacc = dacc + weight * d
+        trans = trans_new
+    return rgb + trans[..., None] * background, trans, dacc
+
+
+def walk_chunks_in_order(proj, colors, opacities, image_shape, background, wrap_x,
+                         depth_vals):
+    """composite_dense with each chunk's K alpha slices walked in order over
+    its window, the dead ones as zeros, in place of moving each pixel's
+    live Gaussians to the front: the same products and sums (a zero alpha
+    leaves T, colour and depth as they were), one step a Gaussian."""
+    from splatter360_tpu_torch.ops import rasterizer_ref as rr
+
+    h, w = image_shape
+    order = torch.argsort(torch.where(proj.valid, proj.depth,
+                                      torch.full_like(proj.depth, math.inf)), stable=True)
+    mean2d, conic, col = proj.mean2d[order], proj.conic[order], colors[order]
+    op = torch.where(proj.valid, opacities, torch.zeros_like(opacities))[order]
+    dep, rad = depth_vals[order], proj.radius[order]
+    dt, dev = mean2d.dtype, mean2d.device
+    rgb = torch.zeros((h, w, col.shape[-1]), dtype=col.dtype, device=dev)
+    trans = torch.ones((h, w), dtype=col.dtype, device=dev)
+    dacc = torch.zeros((h, w), dtype=col.dtype, device=dev)
+    k = max(1, (rr.CHUNK_BYTES if dev.type == "cuda" else rr.HOST_CHUNK_BYTES) // (4 * h * w))
+    for s in range(0, mean2d.shape[0], k):
+        m, cn, r, o = mean2d[s:s + k], conic[s:s + k], rad[s:s + k], op[s:s + k]
+        on = (o > 0)[:, None]
+        box = torch.cat([torch.where(on, m - r, math.inf).amin(0),
+                         torch.where(on, m + r, -math.inf).amax(0)]).tolist()
+        if not all(map(math.isfinite, box)):
+            if box[0] == math.inf:
+                continue
+            box = [0, 0, w, h]
+        x0, y0 = (max(math.floor(v) - 1, 0) for v in box[:2])
+        x1, y1 = min(math.ceil(box[2]) + 2, w), min(math.ceil(box[3]) + 2, h)
+        if wrap_x:
+            x0, x1 = 0, w
+        if x0 >= x1 or y0 >= y1:
+            continue
+        xx = torch.arange(x0, x1, dtype=dt, device=dev)[None, None, :]
+        yy = torch.arange(y0, y1, dtype=dt, device=dev)[None, :, None]
+        m, cn = m[:, :, None, None], cn[:, :, None, None]
+        dx = xx - m[:, 0]
+        if wrap_x:
+            dx = dx - w * torch.round(dx / w)
+        dy = yy - m[:, 1]
+        power = -0.5 * (cn[:, 0] * dx * dx + cn[:, 2] * dy * dy) - cn[:, 1] * dx * dy
+        alpha = torch.clamp(o[:, None, None] * torch.exp(power), max=0.99)
+        inside = (torch.abs(dx) <= r[:, 0, None, None]) & (torch.abs(dy) <= r[:, 1, None, None])
+        live = inside & (power > -4.5) & (power <= 0.0) & (alpha >= 1.0 / 255.0)
+        a = torch.where(live, alpha, torch.zeros_like(alpha))
+        win = (slice(y0, y1), slice(x0, x1))
+        t, acc_c, acc_d = trans[win].clone(), rgb[win].clone(), dacc[win].clone()
+        for j in range(a.shape[0]):
+            t_new = t * (1.0 - a[j])
+            weight = torch.where(t_new >= 1e-4, a[j] * t, torch.zeros_like(a[j]))
+            acc_c = acc_c + weight[..., None] * col[s + j]
+            acc_d = acc_d + weight * dep[s + j]
+            t = t_new
+        trans[win], rgb[win], dacc[win] = t, acc_c, acc_d
+    return rgb + trans[..., None] * background, trans, dacc
+
+
+def dense_inputs(world, shape, device):
+    """composite_dense's inputs for the first pose of a 12-frame trajectory
+    through `world`, projected on the CPU and moved to `device`."""
+    from splatter360_tpu_torch.ops.projection import project_erp, sh_colors
+    from splatter360_tpu_torch.preprocess import sample_trajectory
+
+    c2w = torch.as_tensor(sample_trajectory(world, GEN_FRAMES, seed=3)[0])
+    g = [torch.as_tensor(a) for a in (world.means, world.covariances, world.harmonics,
+                                      world.opacities)]
+    proj = project_erp(g[0], g[1], c2w, shape, 0.05)
+    cols = sh_colors(g[2], g[0], c2w[:3, 3], int(math.isqrt(g[2].shape[-1])) - 1)
+    proj = type(proj)(*(None if t is None else t.to(device) for t in proj))
+    return [proj, cols.to(device), g[3].to(device), shape, torch.zeros(3, device=device), True]
+
+
+def timed_composites(args, in_order=False):
+    """composite_dense, the walk and, with `in_order`, walk_chunks_in_order
+    on the same inputs: outputs and ms."""
+    from splatter360_tpu_torch.ops import rasterizer_ref as rr
+
+    fns = [lambda: rr.composite_dense(*args, True, depth_vals=args[0].depth),
+           lambda: walk_one_at_a_time(*args, args[0].depth)]
+    if in_order:
+        fns.append(lambda: walk_chunks_in_order(*args, args[0].depth))
+    out, ms = [], []
+    for fn in fns:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out.append(fn())
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    return out, ms
+
+
+@phase("3s (a). the batched dense compositor on the card against the walk over one Gaussian "
+       "at a time: on the card at 32x64 and 512x1024, on the CPU at 32x64")
+def phase_dense_walk(seed):
+    """ERP frames projected on the CPU, so that both devices composite the
+    same inputs: composite_dense on the card bit-equal to the walk on the
+    card, on a 32x64 frame of build_room_world(**GEN_SMALL) (2,382
+    Gaussians) and on a 512x1024 frame of the default room (~19k), each
+    with its time, and at 512x1024 walk_chunks_in_order too, bit-equal and
+    timed; at 32x64 within DENSE_ULPS of the walk on the CPU, and the CPU's
+    walk without the transmittance cut (the control) past that bar."""
+    from splatter360_tpu_torch.preprocess import build_room_world
+
+    names = ("colour", "transmittance", "depth")
+    res = {}
+    for label, world, shape in (
+            ("small", build_room_world(**GEN_SMALL), (32, 64)),
+            ("hm3d", build_room_world(seed=3, spacing=GEN_SPACING), (H, W))):
+        args = dense_inputs(world, shape, "cuda")
+        outs, ms = timed_composites(args, in_order=label == "hm3d")
+        got = outs[0]
+        same = {n: all(torch.equal(a, o[i]) for o in outs[1:])
+                for i, (n, a) in enumerate(zip(names, got))}
+        res[label] = dict(n_gaussians=int(world.means.shape[0]), shape=shape,
+                          bit_equal_card_walk=same, batched_ms=ms[0], walk_ms=ms[1])
+        if len(ms) > 2:
+            res[label]["in_order_ms"] = ms[2]
+        if label == "small":
+            cpu_args = dense_inputs(world, shape, "cpu")
+            walks = {cut: walk_one_at_a_time(*cpu_args, cpu_args[0].depth, t_cut=cut)
+                     for cut in (1e-4, 0.0)}
+            res[label]["bars"] = {
+                n: DENSE_ULPS * torch.finfo(torch.float32).eps * float(b.abs().max())
+                for n, b in zip(names, walks[1e-4])}
+            for key, cut in (("cpu_walk_distance", 1e-4), ("control_distance", 0.0)):
+                res[label][key] = {n: float((a.cpu() - b).abs().max())
+                                   for n, a, b in zip(names, got, walks[cut])}
+        print(f"{label}: {res[label]}", flush=True)
+        if not all(same.values()):
+            raise AssertionError(f"{label}: the batched compositor differs from a walk on "
+                                 f"the card: {same}")
+        del got, outs, args
+    small = res["small"]
+    if any(small["cpu_walk_distance"][n] > small["bars"][n] for n in names):
+        raise AssertionError("the batched compositor on the card is past DENSE_ULPS of the "
+                             "CPU's walk")
+    if all(small["control_distance"][n] <= small["bars"][n] for n in names):
+        raise AssertionError("the walk without the transmittance cut is within DENSE_ULPS: "
+                             "the bar cannot see it")
+    return res
+
+
+@phase("3s (b). python -m splatter360_tpu_torch.preprocess at HM3D width: 2 train and 1 test "
+       "scenes of 12 frames of 512x1024 with --validate, and one frame through the cube rig")
+def phase_generate(seed, root: Path):
+    """The CLI on the card at the generator's default spacing: ms a frame
+    (the renders of a scene over its frames, synchronized), s a scene,
+    retries, peak memory (above what earlier phases hold), the --validate
+    statistics; then one frame of the test scene's room through the cube
+    rig (6 faces of 256x256, stitched) against the direct frame on the
+    central band."""
+    from splatter360_tpu_torch.preprocess import __main__ as cli
+    from splatter360_tpu_torch.preprocess import generate, sample_trajectory
+    from splatter360_tpu_torch.preprocess.scene_builder import build_room_world
+
+    render, scene_fn = generate._render_frames, cli.generate_scene
+    frames_s, scene_s = [], []
+
+    def timed(fn, record):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            record(a, time.perf_counter() - t0)
+            return out
+        return run
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 2**30
+    generate._render_frames = timed(render, lambda a, s: frames_s.append(
+        (len(a[1]), s, int(a[0].means.shape[0]))))
+    cli.generate_scene = timed(scene_fn, lambda a, s: scene_s.append(s))
+    t0 = time.perf_counter()
+    try:
+        infos = cli.main([str(root), str(GEN_TRAIN), str(GEN_TEST), "--frames", str(GEN_FRAMES),
+                          "--shape", f"{H}x{W}", "--spacing", str(GEN_SPACING),
+                          "--seed", str(seed), "--validate"])
+    finally:
+        generate._render_frames, cli.generate_scene = render, scene_fn
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30 - held
+    if len(infos) != GEN_TRAIN + GEN_TEST:
+        raise AssertionError(f"{len(infos)} scenes generated")
+    frame_ms = [1e3 * s / n for n, s, _ in frames_s]
+    print(f"{len(infos)} scenes in {wall:.1f} s with --validate: s a scene (world, "
+          f"trajectory, renders, files) {[round(x, 2) for x in scene_s]}; "
+          f"{len(frames_s)} trajectories rendered (retries {[i['rejections'] for i in infos]}), "
+          f"Gaussians {[n for _, _, n in frames_s]}, ms a 512x1024 frame "
+          f"{[round(ms, 1) for ms in frame_ms]}, peak {peak:.2f} GiB over the {held:.2f} GiB "
+          f"held by earlier phases; consistency {[i['consistency'] for i in infos]}",
+          flush=True)
+
+    # the cube rig against the direct render: the middle frame of the first
+    # trajectory drawn for the test scene
+    test_seed = seed + 10_000
+    world = build_room_world(seed=test_seed, spacing=GEN_SPACING)
+    pose = sample_trajectory(world, GEN_FRAMES, seed=test_seed)[GEN_FRAMES // 2][None]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cub = render(world, pose, (H, W), True, 30.0)[0]
+    cube_ms = 1e3 * (time.perf_counter() - t0)
+    erp = render(world, pose, (H, W), False, 30.0)[0]
+    band = slice(H // 4, 3 * H // 4)
+    color_mae = float(np.abs(erp[0][band] - cub[0][band]).mean())
+    d_erp = erp[1][band] / np.maximum(erp[2][band], 1e-6)
+    d_cub = cub[1][band] / np.maximum(cub[2][band], 1e-6)
+    rel = float(np.median(np.abs(d_erp - d_cub) / np.maximum(d_erp, 0.2)))
+    print(f"cube rig frame (6 faces of {H // 2}x{H // 2}, stitched) {cube_ms:.1f} ms; against "
+          f"the direct frame on the central band: colour MAE {color_mae:.4f} (bar "
+          f"{CUBE_COLOR_MAE}), median relative depth {rel:.4f} (bar {CUBE_DEPTH_MEDIAN_REL})",
+          flush=True)
+    if not (color_mae < CUBE_COLOR_MAE and rel < CUBE_DEPTH_MEDIAN_REL):
+        raise AssertionError("the cube-rig frame misses the direct frame's bars")
+    return dict(infos=infos, wall_s=wall, frame_ms=frame_ms, scene_s=scene_s,
+                trajectories=[dict(frames=n, s=s, gaussians=g) for n, s, g in frames_s],
+                peak_gib=peak, held_gib=held, cube_frame_ms=cube_ms, cube_color_mae=color_mae,
+                cube_depth_median_rel=rel, world=world)
+
+
+@phase("3s (c). mode=train (2 steps) then mode=test of its checkpoint on the generated scenes, "
+       "hm3d.yaml at HM3D width")
+def phase_generated_cli(seed, root: Path):
+    """hm3d.yaml's mode=train on (b)'s train scenes, bf16 at B = 1, 2 steps
+    with a checkpoint at step 2 (the fused pair, once a step), then
+    mode=test on (b)'s test scene restoring that checkpoint's weights (the
+    fused forward)."""
+    from splatter360_tpu_torch.ops.cuda import composite as comp
+    from splatter360_tpu_torch.train import checkpoint as ckpt
+
+    fwd, bwd = comp.KERNEL_NAME, comp.BWD_KERNEL_NAME
+    out = root / "gen_train"
+    tr = train_run("(c) mode=train on the generated train scenes, 2 steps",
+                   [str(CONFIG), "mode=train", f"dataset.roots=[{root}]", f"output_dir={out}",
+                    "trainer.batch_size=1", "trainer.max_steps=2",
+                    "checkpointing.every_n_train_steps=2", "trainer.val_check_interval=0",
+                    "trainer.num_sanity_val_steps=0", "trainer.print_log_every_n_steps=1"])
+    if tr["step"] != 2 or (tr["launches"][fwd], tr["launches"][bwd]) != (2, 2):
+        raise AssertionError(f"(c) mode=train: step {tr['step']}, launches {tr['launches']}")
+    tr.pop("printed", None)
+    saved = torch.load(out / "checkpoints" / "2" / ckpt.FILE, map_location="cpu",
+                       weights_only=True)["params"]
+    te = cli_run("(c) mode=test on the generated test scene, the step-2 checkpoint",
+                 [str(CONFIG), "mode=test", f"dataset.roots=[{root}]",
+                  f"checkpointing.load={out / 'checkpoints'}", "test.eval_depth=true",
+                  f"test.output_path={root / 'gen_test'}"], fwd, saved)
+    return dict(train=tr, test=te)
+
+
+@phase("3s (d). render_projections of a generated room at 256x256, the card against the CPU")
+def phase_projections(gen):
+    """utils/drawing.render_projections of (b)'s test-scene world (three
+    orthographic panels, unlabelled) on the card and on the CPU, at the
+    forward bar (1e-4) but for gate flips on at most 1e-3 of the pixels."""
+    from splatter360_tpu_torch.utils.drawing import render_projections
+
+    world = gen["world"]
+    g = (world.means, world.covariances, world.harmonics, world.opacities)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = render_projections(*(torch.as_tensor(a, device="cuda") for a in g), PROJ_RES,
+                              draw_label=False)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = render_projections(*g, PROJ_RES, draw_label=False, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    diff = np.abs(card - cpu).max(-1)
+    share = float((diff > ATOL_RGB).mean())
+    print(f"3 panels of {PROJ_RES}x{PROJ_RES}, {world.means.shape[0]} Gaussians: card "
+          f"{card_s:.2f} s, CPU {cpu_s:.2f} s; max |card - CPU| {diff.max():.2e}, past 1e-4 on "
+          f"{share:.2e} of the pixels; mean colour {card.mean():.4f}", flush=True)
+    if share > 1e-3 or not np.isfinite(card).all() or card.max() < 0.05:
+        raise AssertionError("render_projections: the card's panels differ from the CPU's")
+    return dict(card_s=card_s, cpu_s=cpu_s, max_diff=float(diff.max()), past_bar_share=share)
+
+
 # phase 3r: training and evaluation across ranks (parallel/)
 # (a) the emulated band ranks, (b) the emulated face ranks
-BAND_RANKS, FACE_RANKS = (2, 4, 8), (2, 4)
+BAND_RANKS, FACE_RANKS = (2, 8), (2, 4)
 # (a), (b), (d): a sharded render against the unsharded one, at the bars the
 # JAX package holds its own sharded renders to (tests/test_render_sharding.py:
 # colour and alpha 2e-5, depth 1e-4), but for (a)'s alpha. A band bins a
@@ -3364,7 +3752,7 @@ def view_distance(outs, ref):
                      for v, o in enumerate(outs)) for name in ("color", "alpha", "depth"))
 
 
-@phase("3r (a). band-sharded ERP decode over 2, 4 and 8 emulated ranks, HM3D width")
+@phase("3r (a). band-sharded ERP decode over 2 and 8 emulated ranks, HM3D width")
 def phase_band_ranks(seed):
     """First a view of the flagship scene (bench_scene, whose splats fit
     the tiling's spans) band-sharded over each k of BAND_RANKS against
@@ -3406,7 +3794,7 @@ def phase_band_ranks(seed):
         flagship_launches += comp.launch_counts[comp.KERNEL_NAME]
         flagship_res[k] = view_distance([o], flagship_ref)
     print(f"3r (a) the flagship scene ({flagship_oversized} splats past the tiling's spans) "
-          f"over 2, 4 and 8 bands against render_erp_views (colour / alpha / depth): "
+          f"over 2 and 8 bands against render_erp_views (colour / alpha / depth): "
           + ", ".join(f"{k} bands {c:.2e} / {a:.2e} / {d:.2e}"
                       for k, (c, a, d) in flagship_res.items())
           + f"; bars {SHARD_RGB_TOL} / {BAND_ALPHA_TOL} / {SHARD_DEPTH_TOL}", flush=True)
@@ -3980,14 +4368,6 @@ def phase_timing(check, serve, bcheck, train, ucheck, ubcheck, serve3, train3, p
         print(f"[{label}] one span a tile: {1e3 * np.mean(sweep[None]) / rep['max']:.3f} us per "
               f"walked block of the heaviest tile; every tile capped at 64 blocks: "
               + ", ".join(f"span {k} {v:.3f} ms" for k, v in capped_ms.items()))
-        if "first" in res:
-            # the first step's Gaussians: the same sweep where a few tiles
-            # hold most blocks
-            f_label = f"{label}, step 0 Gaussians"
-            f_args = res["first"]["args"]
-            nproc_report(f_args[at], f_label)
-            region_visits(res["first"]["inp"], f_args[at], f_label)
-            rows[label]["first_span_ms"] = span_sweep(backward, f_args, f_label)
         if unfused:
             # the scatter apart, and the fused backward kernel on the same
             # inputs (what the JAX threshold costs here)
@@ -4031,7 +4411,7 @@ def phase_timing(check, serve, bcheck, train, ucheck, ubcheck, serve3, train3, p
             at = 5 if unfused else 6
             nproc_report(res["args"][at], label)
     # the forward by span on the flagship scene, the serving inputs and the
-    # train steps' Gaussians (the last step's and the first step's)
+    # last train steps' Gaussians
     for label, res, unfused in (("flagship 1 view", check, False),
                                 ("unfused 3-view flagship 1 view", ucheck, True),
                                 ("serving 4 views", serve, False),
@@ -4043,8 +4423,6 @@ def phase_timing(check, serve, bcheck, train, ucheck, ubcheck, serve3, train3, p
         # the flagship scenes' calls take well under a millisecond: more of them
         fwd_report(res["inp"], f"forward, {label}", unfused,
                    iters=20 if "flagship" in label else 3)
-        if "first" in res:
-            fwd_report(res["first"]["inp"], f"forward, {label}, step 0 Gaussians", unfused)
     for label, res, face in (("4 views", serve, None),
                              ("4 views x 6 faces", cserve.get(N_CTX), FACE),
                              ("3-view, 4 views x 6 faces", cserve.get(N_CTX3), FACE)):
@@ -4070,7 +4448,8 @@ def main():
         return
 
     smi = smi_line()
-    print(f"card: {smi}", flush=True)
+    print(f"card: {smi}; host: {len(os.sched_getaffinity(0))} cores, torch "
+          f"{torch.get_num_threads()} threads", flush=True)
     phase_build()
     built = not failures
     check = phase_kernel_check(args.seed) if built else None
@@ -4092,8 +4471,9 @@ def main():
     cli = phase_cli_eval(args.seed)
     cli_train = phase_cli_train(args.seed) or {}
     t_opts = time.perf_counter()
-    options = phase_options(args.seed) or {}
-    options_small = phase_options_small(args.seed)
+    with option_cpu_steps(args.seed) as cpu_steps:
+        options = phase_options(args.seed) or {}
+        options_small = phase_options_small(args.seed, cpu_steps)
     options_cli = phase_options_cli(args.seed) or {}
     smoke = phase_smoke_config(args.seed)
     narrow = phase_narrow_erp(args.seed)
@@ -4135,6 +4515,20 @@ def main():
         shutil.rmtree(orbax_root, ignore_errors=True)
     orbax_s = time.perf_counter() - t_orbax
     print(f"phase 3q took {orbax_s:.1f} s", flush=True)
+    t_gen = time.perf_counter()
+    gen_root = Path(tempfile.mkdtemp(prefix="splat360_gen_"))
+    try:
+        dense_walk = phase_dense_walk(args.seed)
+        gen = phase_generate(args.seed, gen_root)
+        gen_cli = projections = None
+        if gen is not None:
+            gen_cli = phase_generated_cli(args.seed, gen_root)
+            projections = phase_projections(gen)
+            del gen["world"]
+    finally:
+        shutil.rmtree(gen_root, ignore_errors=True)
+    gen_s = time.perf_counter() - t_gen
+    print(f"phase 3s took {gen_s:.1f} s", flush=True)
     rows = phase_timing(check, serve, bcheck, train, ucheck, ubcheck, serve3, train3, pin,
                         cserve, ctrain, cremat) or {}
     release_memory(check, serve, bcheck, train, ucheck, ubcheck, serve3, train3, pin, cserve,
@@ -4184,6 +4578,8 @@ def main():
             ("trajectory videos at HM3D width", videos or None, fused[:1]),
             ("mode=test of the JAX package's orbax checkpoint", orbax_eval, fused[:1]),
             ("mode=train resumed from the orbax checkpoint", orbax_resume, fused),
+            ("mode=train on the generated scenes (3s c)", (gen_cli or {}).get("train"), fused),
+            ("mode=test on the generated scenes (3s c)", (gen_cli or {}).get("test"), fused[:1]),
             ("band-sharded ERP decode over emulated ranks (3r a)", bands, fused[:1]),
             ("face-sharded cube supervision over emulated ranks (3r b)", faces, fused),
             ("two torchrun ranks over gloo (3r c)", two_ranks, fused),
@@ -4214,7 +4610,8 @@ def main():
         parallel_launches over phase 3r's (the band-sharded decodes of (a),
         the face-sharded renders of (b), and every rank's runs in (c) and
         (d)) and, for the fused forward, band_ms_max / band_ms_mean at 8
-        emulated band ranks."""
+        emulated band ranks; generated_launches over phase 3s (c)'s (mode=train
+        and mode=test on the generated scenes)."""
         ctrain = cli_train["b" if "unfused" in name else "a"]
         return dict(name=name, route="cuda", source=f"splatter360_tpu_torch/csrc/{source}",
                     replaces=f"splatter360_tpu/ops/pallas/composite.py:{replaces}",
@@ -4234,6 +4631,8 @@ def main():
                     + orbax_resume["launches"][name],
                     parallel_launches=sum(r["launches"].get(name, 0)
                                           for r in (bands, faces, two_ranks, one_rank)),
+                    generated_launches=gen_cli["train"]["launches"][name]
+                    + gen_cli["test"]["launches"][name],
                     **({"band_ms_max": bands["ranks"][8]["band_ms_max"],
                         "band_ms_mean": bands["ranks"][8]["band_ms_mean"]}
                        if name == "composite_forward_fused" else {}),
@@ -4284,6 +4683,9 @@ def main():
     print(json.dumps({"orbax": dict(zstd_loader=zstd_loader, fixture=fixture, eval=orbax_eval,
                                     resume=orbax_resume, pretrained=orbax_pretrained,
                                     seconds=orbax_s), "card": smi}, default=str))
+    print(json.dumps({"generated": dict(dense_walk=dense_walk, generate=gen, cli=gen_cli,
+                                        projections=projections, seconds=gen_s),
+                      "card": smi}, default=str))
     print(json.dumps({"ranks": dict(bands=bands, faces=faces, two=two_ranks, one=one_rank,
                                     seconds=ranks_s), "card": smi}, default=str))
     print(json.dumps({"kernels": kernels}))

@@ -169,7 +169,10 @@ def test_import_leaves_jax_out():
         "new = ['train.trainer', 'utils.step_tracker', 'utils.tb_events', 'models.visualizer',\n"
         "       'models.epipolar', 'ops.composite_scan', 'models.dino',\n"
         "       'utils.torch_convert', 'train.checkpoint', 'train.evaluator',\n"
-        "       'geometry.transforms', 'train.orbax_reader', 'utils.zstd']\n"
+        "       'geometry.transforms', 'train.orbax_reader', 'utils.zstd',\n"
+        "       'preprocess.generate', 'preprocess.scene_builder', 'preprocess.trajectory',\n"
+        "       'preprocess.validate', 'preprocess.__main__', 'utils.drawing',\n"
+        "       'utils.ply_export']\n"
         "missing = [m for m in new if 'splatter360_tpu_torch.' + m not in sys.modules]\n"
         "assert not missing, missing\n"
     )
