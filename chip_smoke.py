@@ -3680,21 +3680,31 @@ def phase_projections(gen):
 BAND_RANKS, FACE_RANKS = (2, 8), (2, 4)
 # (a), (b), (d): a sharded render against the unsharded one, at the bars the
 # JAX package holds its own sharded renders to (tests/test_render_sharding.py:
-# colour and alpha 2e-5, depth 1e-4), but for (a)'s alpha. A band bins a
-# splat by its box clamped to the band's rows, which can put it in another
-# tier of assign_tiles (the fast tier takes no elliptical cull), so a band's
-# tile lists hold instances the gate turns away; they move the tile's early
-# exit by a block (ROADMAP Queue 3). (a)'s random-encoder views read 5.4e-5
-# to 5.5e-5 on an H100 in colour and alpha together, and 0.26 with the
-# splats taller than the tiling's spans, which (a) zeroes on both sides
+# colour and alpha 2e-5, depth 1e-4), but for (a)'s alpha and gate flips.
+# (a) and (d) hold each band render against the one-band render
+# (render_erp_sharded over one rank), which bins the same tile lists, and
+# (a) holds the one-band render against render_erp_views, which bins the
+# opacity-tightened, culled boxes, so its lists hold fewer instances the
+# gate turns away. Either way a tile's instances fall into other 128-blocks
+# (a band's sorted list starts at its own first tile), which moves the
+# tile's early exit and the grouping of its logT sums (ROADMAP Queue 3). A
+# splat whose 3-sigma box is taller or wider than the tiling's spans is cut
+# from the box's top left, so the two boxes cover it differently (0.26 on
+# an H100): (a) leaves those out on both sides
 SHARD_RGB_TOL, SHARD_DEPTH_TOL = 2e-5, 1e-4
 # (a)'s alpha: a tile's walk ends after the first block past which every
-# pixel's T is below 1e-4 (the kernels' exit), and no weight is taken past
-# T (1 - alpha) < 1e-4, so where the extra gated instances of a band move
-# the exit by a block, alpha (1 - T) may differ by up to 1e-4 and colour by
-# nothing more than reassociation (9.2e-5 read on an H100 on the flagship
-# scene at 2, 4 and 8 bands, colour and alpha together, against 2e-5)
+# pixel's T is below 1e-4 (the kernels' exit), so where other blocks move
+# the exit, alpha (1 - T) may differ by up to 1e-4 (9.2e-5 read on an H100
+# on the flagship scene)
 BAND_ALPHA_TOL = 1e-4
+# (a)'s colour and depth: no weight is taken past T_i (1 - alpha) < 1e-4,
+# and T_i comes from logT summed over other blocks, so a pair on that gate
+# can flip in or out and move its pixel by w = alpha T_i ~ 1e-4 alpha /
+# (1 - alpha) (3.76e-5 in colour read on an H100 on the flagship scene).
+# tests/test_torch_serve.py's rule for such flips: past the bar on at most
+# GATE_FLIP_SHARE of the values, and each within GATE_FLIP_SCALE of the
+# plane's max |value|
+GATE_FLIP_SHARE, GATE_FLIP_SCALE = 1e-4, 1e-2
 # (c), (d): steps of each run under torchrun, and its time limit (s)
 RANK_STEPS, RANK_TIMEOUT = 2, 400
 
@@ -3724,40 +3734,90 @@ def hm3d_gaussians(seed, gen):
     return gaussians, r
 
 
-def fit_tile_spans(leaves, views):
+def fit_tile_spans(leaves, views, tight=False):
     """Which Gaussians fit the tiling's spans in every view: an ERP splat
-    taller than SPAN_H tile rows is binned into its first SPAN_H rows only
-    (ops/tiling.py, as in the JAX package), and a band clamps the box to its
-    own rows first, so a band render covers such a splat further down than
-    the unsharded render (ROADMAP Queue 3)."""
+    taller than SPAN_H tile rows or wider than SPAN_W tile columns is binned
+    into its first SPAN_H rows and SPAN_W columns only, counted from its
+    box's top left (ops/tiling.py, as in the JAX package). A band clamps the
+    box to its own rows first, and bins the 3-sigma box where the unsharded
+    render bins the opacity-tightened one, so a band render covers such a
+    splat elsewhere than the unsharded render (ROADMAP Queue 3). The boxes
+    are the ones the bands bin, the 3-sigma boxes of the projection without
+    opacities, or with `tight` the unsharded render's."""
     from splatter360_tpu_torch.ops.projection import project_erp
-    from splatter360_tpu_torch.ops.tiling import SPAN_H, TILE_H
+    from splatter360_tpu_torch.ops.tiling import SPAN_H, SPAN_W, TILE_H, TILE_W
 
     means, covs, _, opac = leaves
     fits = torch.ones_like(opac, dtype=torch.bool)
     with torch.no_grad():
         for c2w in views:
-            p = project_erp(means, covs, c2w, (H, W), 0.1, opacities=opac)
-            v, ry = p.mean2d[:, 1], p.radius[:, 1]
+            p = project_erp(means, covs, c2w, (H, W), 0.1, opacities=opac if tight else None)
+            (u, v), (rx, ry) = p.mean2d.unbind(-1), p.radius.unbind(-1)
             top = torch.floor((v - ry) / TILE_H).clamp(0, H // TILE_H - 1)
             bottom = torch.floor((v + ry) / TILE_H).clamp(0, H // TILE_H - 1)
-            fits &= ~p.valid | (bottom - top + 1 <= SPAN_H)
+            cols = torch.floor((u + rx) / TILE_W) - torch.floor((u - rx) / TILE_W) + 1
+            fits &= ~p.valid | ((bottom - top + 1 <= SPAN_H) & (cols <= SPAN_W))
     return fits
 
 
-def view_distance(outs, ref):
-    """Max |a - b| of colour, alpha and depth between render_erp_sharded's
-    views `outs` and render_erp_views' `ref` (one batch)."""
-    return tuple(max(float((getattr(o, name) - getattr(ref, name)[0, v]).abs().max())
-                     for v, o in enumerate(outs)) for name in ("color", "alpha", "depth"))
+def band_lists_match(leaves, c2w, k):
+    """Whether each of k bands bins every tile of its rows as one band does:
+    the same instances a tile in the same order (band_inputs of
+    render_erp_sharded over Emulated(k) and Emulated(1), one view)."""
+    from splatter360_tpu_torch.parallel import render_sharding as prs
+    from splatter360_tpu_torch.parallel.mesh import Emulated
+
+    def bands(n):
+        starts, rows, band_h = prs.band_layout(H, n)
+        table = prs.packed_table(*leaves, c2w, (H, W), Emulated(n), near=0.1)
+        return [(s, r, prs.band_inputs(table, s, r, band_h, W)[0]) for s, r in zip(starts, rows)]
+
+    with torch.no_grad():
+        ((_, _, one),) = bands(1)
+        for s, r, band in bands(k):
+            ntx = band.num_tiles_x
+            counts, lo = band.tile_counts[:r * ntx], int(one.tile_starts[s * ntx])
+            n = int(counts.sum())
+            if not (torch.equal(counts, one.tile_counts[s * ntx:(s + r) * ntx])
+                    and torch.equal(band.gaussian_idx[:n], one.gaussian_idx[lo:lo + n])):
+                return False
+    return True
+
+
+def planes(out):
+    """[(colour, alpha, depth)] a view: of a list of render_erp_sharded's
+    outputs, or of render_erp_views' (one batch)."""
+    if isinstance(out, list):
+        return [(o.color, o.alpha, o.depth) for o in out]
+    return [(out.color[0, v], out.alpha[0, v], out.depth[0, v])
+            for v in range(out.color.shape[1])]
+
+
+def gate_flips(outs, refs):
+    """Views against views (planes): for colour, alpha and depth the max
+    |a - b|, the share of values past its bar, and
+    whether it misses: alpha past BAND_ALPHA_TOL anywhere, colour or depth
+    past SHARD_RGB_TOL / SHARD_DEPTH_TOL on more than GATE_FLIP_SHARE of the
+    values or by more than GATE_FLIP_SCALE times the plane's max |value|."""
+    res = {}
+    for i, (name, bar) in enumerate((("colour", SHARD_RGB_TOL), ("alpha", BAND_ALPHA_TOL),
+                                     ("depth", SHARD_DEPTH_TOL))):
+        d = torch.stack([(o[i] - r[i]).abs() for o, r in zip(outs, refs)])
+        big, past = float(d.max()), float((d > bar).float().mean())
+        scale = max(float(r[i].abs().max()) for r in refs)
+        res[name] = dict(max=big, past=past, miss=big > bar and (
+            name == "alpha" or past > GATE_FLIP_SHARE or big > GATE_FLIP_SCALE * scale))
+    return res
 
 
 @phase("3r (a). band-sharded ERP decode over 2 and 8 emulated ranks, HM3D width")
 def phase_band_ranks(seed):
-    """First a view of the flagship scene (bench_scene, whose splats fit
-    the tiling's spans) band-sharded over each k of BAND_RANKS against
-    render_erp_views: colour at SHARD_RGB_TOL, alpha at BAND_ALPHA_TOL, depth
-    at SHARD_DEPTH_TOL. Then the encoder's
+    """First a view of the flagship scene (bench_scene, whole: its splats
+    past the tiling's spans pass them in 3 sigma and in their tight boxes
+    alike) band-sharded over one rank (render_erp_sharded with
+    Emulated(1)) against render_erp_views, and over each k of BAND_RANKS
+    against the one-band view, each band's tile lists equal to one band's
+    (band_lists_match), both under gate_flips. Then the encoder's
     Gaussians of one request into N_TGT 512x1024 views,
     each band-sharded over k emulated ranks (render_erp_sharded with
     Emulated(k)): one fused forward launch a band and view; every band of
@@ -3765,71 +3825,105 @@ def phase_band_ranks(seed):
     kernel's ms a band, their balance (max / mean) and the whole view's
     kernel ms, on the view whose heaviest tile holds the fewest blocks (the
     plain version walks a band to its heaviest tile's last block, and a
-    random encoder piles ~1,200 blocks into a tile). The views against
-    render_erp_views at the same bars, with the splats taller than the
-    tiling's spans
-    (fit_tile_spans) at zero opacity on both sides (bands render more of
-    them; the distance with them is printed)."""
+    random encoder piles ~1,200 blocks into a tile). The views held as the
+    flagship's (the lists on that view), with the splats whose 3-sigma
+    boxes (the ones the bands bin) are taller or wider than the tiling's
+    spans (fit_tile_spans) left out, and no instance dropped (the distance to
+    render_erp_views with those splats is printed, and the count of splats
+    whose tight boxes are past the spans)."""
     from splatter360_tpu_torch.models.types import Gaussians
     from splatter360_tpu_torch.ops.cuda import composite as comp
     from splatter360_tpu_torch.parallel import render_sharding as prs
     from splatter360_tpu_torch.parallel.mesh import Emulated
     from splatter360_tpu_torch.serve import render_erp_views
 
-    # the flagship scene, whose splats fit the tiling's spans: one view over
-    # each k against render_erp_views at the JAX package's own bars
+    def sharded(leaves, views, k):
+        with torch.no_grad():
+            return [prs.render_erp_sharded(*leaves, c2w, (H, W), Emulated(k), near=0.1,
+                                           render_depth=True) for c2w in views]
+
+    def held(outs, refs, label):
+        """gate_flips of the views `outs` against `refs` (planes), no
+        instance dropped in `outs`."""
+        flips, dropped = gate_flips(planes(outs), refs), sum(int(o.dropped) for o in outs)
+        if dropped or any(st["miss"] for st in flips.values()):
+            raise AssertionError(f"{label}: {flips}, dropped {dropped}")
+        return flips
+
+    def line(flips):
+        return " / ".join(f"{st['max']:.2e} ({st['past']:.1e} past)" for st in flips.values())
+
+    bars = (f"bars {SHARD_RGB_TOL} / {BAND_ALPHA_TOL} / {SHARD_DEPTH_TOL}, gate flips on at "
+            f"most {GATE_FLIP_SHARE} of the values")
+
+    # the flagship scene, whole (see the docstring)
     flagship = bench_scene(seed, N_CTX * H * W)
     eye = torch.eye(4, device="cuda")
     nf = [torch.full((1, 1), v, device="cuda") for v in (0.1, 10.0)]
     flagship_oversized = int((~fit_tile_spans(flagship, [eye])).sum())
+    flagship_tight = int((~fit_tile_spans(flagship, [eye], tight=True)).sum())
     with torch.no_grad():
         flagship_ref = render_erp_views(Gaussians(*(x[None] for x in flagship)), eye[None, None],
                                         *nf, (H, W), render_depth=True)
-    flagship_res, flagship_launches = {}, 0
+    comp.launch_counts[comp.KERNEL_NAME] = 0
+    flagship_one = sharded(flagship, [eye], 1)
+    flagship_res = {1: held(flagship_one, planes(flagship_ref),
+                            "the flagship's one-band view against render_erp_views")}
+    flagship_one = planes(flagship_one)
     for k in BAND_RANKS:
-        comp.launch_counts[comp.KERNEL_NAME] = 0
-        with torch.no_grad():
-            o = prs.render_erp_sharded(*flagship, eye, (H, W), Emulated(k), near=0.1,
-                                       render_depth=True)
-        flagship_launches += comp.launch_counts[comp.KERNEL_NAME]
-        flagship_res[k] = view_distance([o], flagship_ref)
-    print(f"3r (a) the flagship scene ({flagship_oversized} splats past the tiling's spans) "
-          f"over 2 and 8 bands against render_erp_views (colour / alpha / depth): "
-          + ", ".join(f"{k} bands {c:.2e} / {a:.2e} / {d:.2e}"
-                      for k, (c, a, d) in flagship_res.items())
-          + f"; bars {SHARD_RGB_TOL} / {BAND_ALPHA_TOL} / {SHARD_DEPTH_TOL}", flush=True)
-    if any(c > SHARD_RGB_TOL or a > BAND_ALPHA_TOL or d > SHARD_DEPTH_TOL
-           for c, a, d in flagship_res.values()):
-        raise AssertionError("the flagship scene's bands differ from render_erp_views")
-    del flagship, flagship_ref, o
+        if not band_lists_match(flagship, eye, k):
+            raise AssertionError(f"the flagship's {k} bands bin other tile lists than one band")
+        flagship_res[k] = held(sharded(flagship, [eye], k), flagship_one,
+                               f"the flagship's {k} bands against one band")
+    flagship_launches = comp.launch_counts[comp.KERNEL_NAME]
+    print(f"3r (a) the flagship scene ({flagship_oversized} splats past the tiling's spans in "
+          f"3 sigma, {flagship_tight} in their tight boxes; colour / alpha / depth): one band "
+          f"against render_erp_views {line(flagship_res[1])}; "
+          + ", ".join(f"{k} bands against one band {line(flagship_res[k])}" for k in BAND_RANKS)
+          + f" (the same tile lists); {bars}", flush=True)
+    del flagship, flagship_ref, flagship_one
 
     gaussians, r = hm3d_gaussians(seed, torch.Generator(device="cuda").manual_seed(seed + 80))
     leaves = [x[0] for x in gaussians]
     views = list(r["tgt_pose"][0])
     fits = fit_tile_spans(leaves, views)
-    fitting = [*leaves[:3], leaves[3] * fits]
+    # the splats that fit, as many as a multiple of every band count, so
+    # that no band render pads the table with rows of its own
+    keep = torch.nonzero(fits).squeeze(1)
+    fitting = [x[keep[:len(keep) - len(keep) % math.lcm(*BAND_RANKS)]] for x in leaves]
     refs = {}
     with torch.no_grad():
         for name, g in (("all", leaves), ("fitting", fitting)):
-            refs[name] = render_erp_views(Gaussians(*(x[None] for x in g)), r["tgt_pose"],
-                                          r["tgt_near"], r["tgt_far"], (H, W), render_depth=True)
+            refs[name] = planes(render_erp_views(Gaussians(*(x[None] for x in g)), r["tgt_pose"],
+                                                 r["tgt_near"], r["tgt_far"], (H, W),
+                                                 render_depth=True))
     oversized = int((~fits).sum())
+    oversized_tight = int((~fit_tile_spans(leaves, views, tight=True)).sum())
+    comp.launch_counts[comp.KERNEL_NAME] = 0
+    one_outs = sharded(fitting, views, 1)
+    one_launches = comp.launch_counts[comp.KERNEL_NAME]
+    one_flips = held(one_outs, refs["fitting"], "the encoder's one-band views against "
+                                                "render_erp_views")
+    one = planes(one_outs)
+    del one_outs
+    print(f"3r (a) the encoder's {N_TGT} views without the {oversized} splats past the "
+          f"tiling's spans in 3 sigma ({oversized_tight} in their tight boxes): one band "
+          f"against render_erp_views (colour / alpha / depth) {line(one_flips)}; {bars}",
+          flush=True)
     heaviest = comp.segment_blocks(*(target_inputs(gaussians, views)[k]
                                      for k in ("starts", "counts"))).max(dim=1).values
     v0 = int(heaviest.argmin())
     whole_ms = time_cuda(fwd_calls(target_inputs(gaussians, views[v0:v0 + 1]))[0], iters=5)
     res = dict(launches={k: 0 for k in comp.launch_counts}, ranks={}, whole_view_ms=whole_ms,
-               err=0.0, oversized=oversized, view=v0,
-               heaviest_tile_blocks=[int(x) for x in heaviest],
-               flagship=dict(oversized=flagship_oversized, err=flagship_res))
-    res["launches"][comp.KERNEL_NAME] += flagship_launches
+               err=0.0, oversized=oversized, oversized_tight=oversized_tight, view=v0,
+               one_band=one_flips, heaviest_tile_blocks=[int(x) for x in heaviest],
+               flagship=dict(oversized=flagship_oversized, oversized_tight=flagship_tight,
+                             err=flagship_res))
+    res["launches"][comp.KERNEL_NAME] += flagship_launches + one_launches
     for k in BAND_RANKS:
-        comm = Emulated(k)
         for name in comp.launch_counts:
             comp.launch_counts[name] = 0
-        with torch.no_grad():
-            outs = [prs.render_erp_sharded(*leaves, c2w, (H, W), comm, near=0.1,
-                                           render_depth=True) for c2w in views]
+        outs = sharded(leaves, views, k)
         torch.cuda.synchronize()
         launched = dict(comp.launch_counts)
         want = {name: (k * N_TGT if name == comp.KERNEL_NAME else 0) for name in launched}
@@ -3839,20 +3933,14 @@ def phase_band_ranks(seed):
             res["launches"][name] += n
         if not all(bool(torch.isfinite(o.color).all()) for o in outs):
             raise AssertionError(f"{k} ranks: non-finite colour")
-        all_err = view_distance(outs, refs["all"])
-        with torch.no_grad():
-            outs = [prs.render_erp_sharded(*fitting, c2w, (H, W), comm, near=0.1,
-                                           render_depth=True) for c2w in views]
-        cerr, aerr, derr = view_distance(outs, refs["fitting"])
-        err = max(cerr, aerr)
-        if cerr > SHARD_RGB_TOL or aerr > BAND_ALPHA_TOL or derr > SHARD_DEPTH_TOL:
-            raise AssertionError(f"{k} ranks: the assembled views differ from render_erp_views "
-                                 f"by {cerr:.3e} (colour), {aerr:.3e} (alpha), {derr:.3e} "
-                                 f"(depth)")
+        all_flips = gate_flips(planes(outs), refs["all"])
+        if not band_lists_match(fitting, views[v0], k):
+            raise AssertionError(f"{k} ranks: the bands bin other tile lists than one band")
+        flips = held(sharded(fitting, views, k), one, f"{k} ranks against one band")
         del outs
         starts, rows, band_h = prs.band_layout(H, k)
         with torch.no_grad():
-            table = prs.packed_table(*leaves, views[v0], (H, W), comm, near=0.1)
+            table = prs.packed_table(*leaves, views[v0], (H, W), Emulated(k), near=0.1)
         bands = []
         for b in range(k):
             with torch.no_grad():
@@ -3865,19 +3953,18 @@ def phase_band_ranks(seed):
                               plain_ms=stats["plain_ms"], bound_ms=bound_ms(inp, stats)[0],
                               instances=int(asg.tile_counts.sum()), err=e))
         ms = [b["ms"] for b in bands]
-        res["ranks"][k] = dict(bands=bands, view_err=err, colour_err=cerr, alpha_err=aerr,
-                               depth_err=derr, all_err=all_err,
+        res["ranks"][k] = dict(bands=bands, against_one=flips, all_against_ref=all_flips,
                                band_ms_max=max(ms), band_ms_mean=float(np.mean(ms)),
                                balance=max(ms) / float(np.mean(ms)))
         res["err"] = max(res["err"], *(b["err"] for b in bands))
         print(f"3r (a) {k} ranks: bands (tile rows) {list(rows)} of view {v0} (heaviest tiles "
               f"of the 4 views {res['heaviest_tile_blocks']} blocks), kernel ms a band "
               f"{[round(x, 3) for x in ms]} (max {max(ms):.3f}, mean {np.mean(ms):.3f}, "
-              f"balance {max(ms) / np.mean(ms):.3f}; the whole view {whole_ms:.3f} ms); "
-              f"views against render_erp_views (colour / alpha / depth) {cerr:.2e} / "
-              f"{aerr:.2e} / {derr:.2e} without the {oversized} splats past the tiling's "
-              f"spans ({' / '.join(f'{x:.2e}' for x in all_err)} with them); launches "
-              f"{launched}", flush=True)
+              f"balance {max(ms) / np.mean(ms):.3f}; the whole view {whole_ms:.3f} ms), "
+              f"instances a band {[b['instances'] for b in bands]}; views against one band "
+              f"(colour / alpha / depth) {line(flips)} (the same tile lists on view {v0}), "
+              f"against render_erp_views with the splats past the spans {line(all_flips)}; "
+              f"launches {launched}", flush=True)
         del table
     return res
 
@@ -3965,7 +4052,8 @@ def rank_run(spec_path):
     step's ms (synchronized), the first batch's digest, the step-1
     gradients the optimizer took (spec "grads"), launches and peak memory
     a run; with spec "band_check", a 512x1024 view of the flagship scene
-    band-sharded over the world group against render_erp_views. Writes
+    band-sharded over the world group against the same view over one
+    emulated rank (mesh.Emulated(1)). Writes
     rank<r>.json (and grads<r>.pt) under spec "out"."""
     import torch.distributed as dist
 
@@ -4029,13 +4117,10 @@ def rank_run(spec_path):
             del result
         rec["runs"].append(run)
     if spec.get("band_check"):
+        from splatter360_tpu_torch.parallel.mesh import Emulated
         from splatter360_tpu_torch.parallel.render_sharding import render_erp_sharded
-        from splatter360_tpu_torch.serve import render_erp_views
 
         means, covs, sh, opac = bench_scene(spec["seed"], N_CTX * H * W)
-        from splatter360_tpu_torch.models.types import Gaussians
-
-        g = Gaussians(means[None], covs[None], sh[None], opac[None])
         c2w = torch.eye(4, device=dev)
         for k in comp.launch_counts:
             comp.launch_counts[k] = 0
@@ -4043,14 +4128,13 @@ def rank_run(spec_path):
             got = render_erp_sharded(means, covs, sh, opac, c2w, (H, W), Group(), near=0.1,
                                      render_depth=True)
             launched = dict(comp.launch_counts)
-            ref = render_erp_views(g, c2w[None, None], torch.full((1, 1), 0.1, device=dev),
-                                   torch.full((1, 1), 10.0, device=dev), (H, W),
-                                   render_depth=True)
+            ref = render_erp_sharded(means, covs, sh, opac, c2w, (H, W), Emulated(1), near=0.1,
+                                     render_depth=True)
         rec["band_check"] = dict(
             launches=launched,
-            err=max(float((got.color - ref.color[0, 0]).abs().max()),
-                    float((got.alpha - ref.alpha[0, 0]).abs().max())),
-            depth_err=float((got.depth - ref.depth[0, 0]).abs().max()))
+            err=max(float((got.color - ref.color).abs().max()),
+                    float((got.alpha - ref.alpha).abs().max())),
+            depth_err=float((got.depth - ref.depth).abs().max()))
     (out / f"rank{rank}.json").write_text(json.dumps(rec))
     dist.destroy_process_group()
 
@@ -4293,7 +4377,8 @@ def phase_nccl_one_rank(seed, root: Path, started: dict):
     (a 1x1 grid, the flags off as in JAX; the broadcast and barriers run on
     NCCL), mode=test of its checkpoint on one scene, then a flagship view
     band-sharded over the one-rank world group (NCCL's all_gather and
-    all_reduce) against render_erp_views."""
+    all_reduce) against the same view over one emulated rank, which 3r (a)
+    holds against render_erp_views."""
     if started is None:
         raise AssertionError("the rank was not started")
     (rk,) = torchrun_finish(started["d"])
@@ -4303,7 +4388,7 @@ def phase_nccl_one_rank(seed, root: Path, started: dict):
           f"{[round(x, 1) for x in train['step_ms']]}, peak {train['peak_gib']:.2f} GiB, launches "
           f"{train['launches']}; mode=test {test['wall_s']:.1f} s, scores {test['scores']}, "
           f"launches {test['launches']}; a band-sharded flagship view on 1 rank against "
-          f"render_erp_views {band['err']:.2e} / depth {band['depth_err']:.2e}, launches "
+          f"one emulated rank {band['err']:.2e} / depth {band['depth_err']:.2e}, launches "
           f"{band['launches']}", flush=True)
     if rk["backend"] != "nccl" or train["step"] != RANK_STEPS:
         raise AssertionError(f"(d): backend {rk['backend']}, step {train['step']}")
@@ -4311,7 +4396,7 @@ def phase_nccl_one_rank(seed, root: Path, started: dict):
     if not all(math.isfinite(v) for v in scores.values()):
         raise AssertionError(f"(d): non-finite scores {scores}")
     if band["err"] > SHARD_RGB_TOL or band["depth_err"] > SHARD_DEPTH_TOL:
-        raise AssertionError("(d): the band-sharded view differs from render_erp_views")
+        raise AssertionError("(d): the band-sharded view differs from one emulated rank's")
     launches = {}
     for run in (train, test, band):
         for name, n in run["launches"].items():

@@ -9,20 +9,23 @@ parts in this process, one after another, through the same code.
 ERP views, one at a time (render_erp_sharded):
   1. the N Gaussians, padded with zero opacity to a multiple of k, are cut
      into k shards; each rank projects its own (project_erp, SH colours)
-     and packs 14 columns a Gaussian: JAX's 13 (:154-162, in its order)
-     and the elliptical-cull level. Unlike JAX's sharded render, the
-     projection takes the opacities, as the port's unsharded render does
-     (radii tightened to where alpha can reach 1/255, the level of the
-     cull), so each tile's instance list is the unsharded render's. JAX's
-     looser table bins more instances, all gated to nothing, but they move
-     the kernels' early exit, which is per block of a tile (up to 1e-4),
-     and with the large splats of a random encoder they overflow the tier
-     caps (0.26 in colour at HM3D width on an H100);
+     and packs JAX's 13 columns a Gaussian (:154-162, in its order). As in
+     JAX's band render (:149), the projection takes no opacities: the
+     radii are the 3-sigma boxes and `valid` has no o >= 1/255 cut, where
+     the unsharded render bins the opacity-tightened boxes. A band bins an
+     ERP splat into at most SPAN_H tile rows from the top of its box
+     clamped to the band, so where a faint splat's box is taller than
+     that, the footprint decides which rows it covers. The looser boxes'
+     extra instances are gated to nothing (alpha < 1/255 outside the tight
+     box), but they move a tile's block boundaries, and with them its
+     early exit (alpha within 1e-4) and, rarely, a pair on the weight gate
+     (ROADMAP Queue 3);
   2. the packed shards are gathered in rank order, so the table is the
      unsharded one row for row (backward: a sum reduce-scatter);
   3. the image is cut into k contiguous bands of tile rows, area-weighted
      (_band_partition: the poles are cheap, the equator dear); each rank
-     culls the table to its band, bins it at (band_h, w) with the wrap, and
+     culls the table to its band, bins it at (band_h, w) with the wrap (no
+     elliptical cull: JAX's band_proj has no gate_s, :179-185), and
      composites it through ops/cuda/composite.composite_tiles (the fused
      kernels, or past use_fused the unfused pair);
   4. the bands are gathered and the image assembled by a static row gather.
@@ -114,21 +117,20 @@ def _pad_rows(x: torch.Tensor, k: int) -> torch.Tensor:
 
 
 def pack_shard(means, covs, sh, op, c2w, image_shape, near, sh_degree):
-    """One shard's projected Gaussians [n, 14]: u v | conic a b c | r g b |
-    opacity | depth | rx ry | valid | cull level (see the module
-    docstring)."""
-    proj = project_erp(means, covs, c2w, image_shape, near, opacities=op)
+    """One shard's projected Gaussians [n, 13], JAX's columns: u v | conic a
+    b c | r g b | opacity | depth | rx ry | valid, from the projection
+    without opacities (see the module docstring)."""
+    proj = project_erp(means, covs, c2w, image_shape, near)
     cols = sh[..., 0] if sh.shape[-1] == 1 else sh_colors(sh, means, c2w[:3, 3], sh_degree)
     return torch.cat([proj.mean2d, proj.conic, cols, op[:, None], proj.depth[:, None],
-                      proj.radius, proj.valid.to(means.dtype)[:, None], proj.gate_s[:, None]],
-                     dim=-1)
+                      proj.radius, proj.valid.to(means.dtype)[:, None]], dim=-1)
 
 
 def packed_table(means, covariances, harmonics, opacities, c2w, image_shape, comm,
                  near=0.1, sh_degree: Optional[int] = None) -> torch.Tensor:
     """The Gaussians, padded with zero opacity to a multiple of comm.size
     and cut into that many shards, each projected and packed by its rank
-    (pack_shard), gathered in rank order: the table [N_pad, 14] of the
+    (pack_shard), gathered in rank order: the table [N_pad, 13] of the
     whole set, row for row; its gradient reaches each rank's shard summed
     over the ranks."""
     k = comm.size
@@ -144,9 +146,10 @@ def packed_table(means, covariances, harmonics, opacities, c2w, image_shape, com
 
 def band_inputs(table, start: int, rows: int, band_h: int, w: int):
     """The compositor's inputs of one band: its tile assignment at
-    (band_h, w) with the wrap, of the table's Gaussians that reach rows
-    [start, start + rows) (in tile rows), and their attribute rows [1, N,
-    16], v measured from the band's top."""
+    (band_h, w) with the wrap, of the table's Gaussians whose 3-sigma boxes
+    reach rows [start, start + rows) (in tile rows), with no elliptical
+    cull (JAX's band_proj), and their attribute rows [1, N, 16], v measured
+    from the band's top."""
     mean2d, conic, cols = table[:, 0:2], table[:, 2:5], table[:, 5:8]
     op, depth, radius = table[:, 8], table[:, 9], table[:, 10:12]
     valid = table[:, 12] > 0.5
@@ -155,7 +158,7 @@ def band_inputs(table, start: int, rows: int, band_h: int, w: int):
     in_band = (v_loc + ry >= 0.0) & (v_loc - ry < float(rows * TILE_H))
     mean_loc = torch.stack([mean2d[:, 0], v_loc], dim=-1)
     proj = Projected(mean2d=mean_loc, conic=conic, depth=depth, radius=radius,
-                     valid=valid & in_band, gate_s=table[:, 13])
+                     valid=valid & in_band)
     with torch.no_grad():
         assignment = assign_tiles(proj, (band_h, w), wrap_x=True)
     return assignment, build_attrs(mean_loc, conic, cols, op, depth, radius)[None]

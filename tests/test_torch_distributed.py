@@ -7,17 +7,23 @@ One spawn for the whole file (the module fixture `ranks`): four processes
      two, and face-sharded cube views on a (2, 2) (data, face) rank grid,
      each against the same render on emulated ranks (parallel/mesh.Emulated)
      in the same process;
+  2. take one face-sharded cube train step (train.shard_faces) on a (2, 2)
+     grid, a global batch of 2;
 then ranks 0 and 1, in a new two-rank group,
-  2. take one data-parallel train step, each on its half of a global batch
+  3. take one data-parallel train step, each on its half of a global batch
      of 2, held against the port's single-process step on the whole batch
-     and against JAX's make_train_step(mesh=create_mesh(2)) on it;
-  3. run the CLI: mode=train for 2 steps with cube supervision on a 1 x 2
+     and against JAX's make_train_step(mesh=create_mesh(2)) on it, and one
+     face-sharded cube step on a (1, 2) grid, a global batch of 1; each
+     face-sharded step held against the port's single-process cube step on
+     its global batch and against JAX's
+     make_train_step(mesh=create_mesh_2d(n_data, n_face)) on it;
+  4. run the CLI: mode=train for 2 steps with cube supervision on a 1 x 2
      (data, face) grid (train.shard_faces) and a band-sharded validation
      (train.shard_render), a checkpoint, then resumed for a third step; and
      mode=test with train.shard_render, held against the same mode=test on
      one process.
-While the ranks run, the parent computes JAX's meshed step and the port's
-single-process step. The workers import neither JAX nor the JAX package.
+While the ranks run, the parent computes JAX's meshed steps and the port's
+single-process steps. The workers import neither JAX nor the JAX package.
 
 The train step is the tiny encoder of tests/test_torch_serve.py with four
 Table 3 ablations (wo_cube_encoder, wo_depth_refine, wo_cost_volume_refine,
@@ -25,6 +31,8 @@ wo_backbone_cross_attn) and the scan compositor (render_backend "jax",
 max_per_tile 256) on both sides, at 32x256 with one target view, no LPIPS
 and a depth L1 over holes (whose global weight sum is the one cross-rank
 term of the loss): what makes JAX's step cheap enough to compile here.
+The cube steps take the same model with supervision "cubes" (one target
+view: 6 faces of 16x16, 3 a face rank).
 
 Bars, stated before the runs:
   * sharded renders across ranks against emulated ranks: outputs bit-equal
@@ -39,6 +47,9 @@ Bars, stated before the runs:
     1e-8 turn by a good share of lr); the two ranks' parameters bit-equal;
   * against JAX's meshed step: tests/test_torch_train.py's bars, metrics at
     1e-4 relative and every leaf's gradient within 2e-3 of max|g|;
+  * the face-sharded cube steps: every rank's parameters bit-equal; against
+    the single-process cube step, the data-parallel step's bars above; and
+    against JAX's meshed step, its bars;
   * the sharded mode=test against one process: tests/test_torch_eval.py's
     score bars (PSNR 1e-2 dB; SSIM 1e-4; MSE 1e-5; depth metrics 5e-4
     relative).
@@ -74,6 +85,9 @@ ENC_KW = dict(d_feature=32, num_depth_candidates=16, downscale_factor=8,
               costvolume_unet_attn_res=(2,), depth_unet_feat_dim=8, depth_unet_attn_res=(8,),
               depth_unet_channel_mult=(1, 1, 1, 1))
 MAX_PER_TILE = 256
+# the face-sharded cube steps: (n_data, n_face) rank grids, whose global
+# batch is n_data examples
+FACE_GRIDS = ((2, 2), (1, 2))
 TIMEOUT_S = 400
 GRAD_TOL = 2e-3
 CLI_TINY = ["dataset.view_sampler.max_distance_between_context_views=5",
@@ -145,7 +159,9 @@ def part_of(batch, i):
     return {p: {k: v[i:i + 1] for k, v in batch[p].items()} for p in batch}
 
 
-def port_configs():
+def port_configs(cubes=False):
+    """The encoder and train configs of the steps: ERP supervision, or with
+    `cubes` cube supervision under train.shard_faces."""
     from splatter360_tpu_torch.models.adapter import GaussianAdapterConfig
     from splatter360_tpu_torch.models.encoder import EncoderConfig
     from splatter360_tpu_torch.train.losses import LossConfig
@@ -154,16 +170,17 @@ def port_configs():
     return (EncoderConfig(gaussian_adapter=GaussianAdapterConfig(sh_degree=1), **ENC_KW,
                           **ABLATIONS),
             TrainConfig(optimizer=OptimizerConfig(max_steps=100),
-                        loss=LossConfig(lpips_weight=0.0, depth_weight=0.1), supervision="erp",
+                        loss=LossConfig(lpips_weight=0.0, depth_weight=0.1),
+                        supervision="cubes" if cubes else "erp", shard_faces=cubes,
                         render_backend="jax", max_per_tile=MAX_PER_TILE))
 
 
-def port_step(params, batch, grid=None):
-    """One port train step from `params`: (metrics, the gradients the
-    optimizer took, the parameters after it)."""
+def port_step(params, batch, grid=None, cubes=False):
+    """One port train step from `params` (port_configs(cubes)): (metrics,
+    the gradients the optimizer took, the parameters after it)."""
     from splatter360_tpu_torch.train.state import create_train_state, train_step
 
-    cfg, tcfg = port_configs()
+    cfg, tcfg = port_configs(cubes)
     state = create_train_state(cfg, tcfg, device="cpu", state_dict=params)
     grads = {}
 
@@ -175,6 +192,12 @@ def port_step(params, batch, grid=None):
     metrics = train_step(state, batch, on_stage=keep, grid=grid)
     return ({k: float(v) for k, v in metrics.items()}, grads,
             {k: v.detach().clone() for k, v in state.model.state_dict().items()})
+
+
+def face_batch(batch, n_data):
+    """The global batch of a face grid with n_data data ranks: its first
+    n_data examples."""
+    return {p: {k: v[:n_data] for k, v in batch[p].items()} for p in batch}
 
 
 def cli_argv(data: Path, *extra):
@@ -243,6 +266,17 @@ def _train_check(rank: int, params: dict, batch: dict) -> dict:
     return dict(metrics=metrics, grads=grads, params=after)
 
 
+def _face_step(params: dict, batch: dict, n_data: int, n_face: int) -> dict:
+    """One face-sharded cube step on an (n_data, n_face) grid over all the
+    ranks of the process group, each on its data index's example."""
+    from splatter360_tpu_torch.parallel.mesh import create_rank_grid
+
+    grid = create_rank_grid(n_data, n_face)
+    metrics, grads, after = port_step(params, part_of(batch, grid.data_index), grid=grid,
+                                      cubes=True)
+    return dict(metrics=metrics, grads=grads, params=after)
+
+
 def _cli_checks(rank: int, data: Path, out: Path) -> dict:
     from splatter360_tpu_torch.main import main
 
@@ -273,24 +307,31 @@ def _rank_main(rank: int, root: str, t_spawn: float):
     dist.init_process_group("gloo", init_method=f"file://{store}/four", rank=rank, world_size=4)
     try:
         res = _render_checks(rank)
-    finally:
-        dist.destroy_process_group()
-    res["seconds"] = {"start": started, "renders": time.perf_counter() - t0}
-    if rank < 2:
+        res["seconds"] = {"start": started, "renders": time.perf_counter() - t0}
         # the parent writes the scenes, then the inputs, while the renders run
         inputs = out / "inputs.pt"
         while not inputs.is_file():
             assert time.time() - t_spawn < TIMEOUT_S, "no inputs.pt from the parent"
             time.sleep(0.1)
         params, batch = torch.load(inputs, weights_only=False)
+        t0 = time.perf_counter()
+        res["faces2x2"] = _face_step(params, face_batch(batch, 2), 2, 2)
+        res["seconds"]["2x2 cube step"] = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+    if rank < 2:
         dist.init_process_group("gloo", init_method=f"file://{store}/two", rank=rank,
                                 world_size=2)
         try:
             t0 = time.perf_counter()
             res["train"] = _train_check(rank, params, batch)
             res["seconds"]["train step"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            res["faces1x2"] = _face_step(params, face_batch(batch, 1), 1, 2)
+            res["seconds"]["1x2 cube step"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
             res["cli"] = _cli_checks(rank, data, out / "cli")
-            res["seconds"]["cli"] = time.perf_counter() - t0 - res["seconds"]["train step"]
+            res["seconds"]["cli"] = time.perf_counter() - t0
         finally:
             dist.destroy_process_group()
     torch.save(res, out / f"rank{rank}.pt")
@@ -299,9 +340,11 @@ def _rank_main(rank: int, root: str, t_spawn: float):
 # ---------------------------------------------------------------- parent
 
 
-def jax_meshed_step(params_flax, batch):
-    """JAX's make_train_step(mesh=create_mesh(2)) on the global batch: the
-    metrics and the step's (unclipped) gradients."""
+def jax_meshed_step(params_flax, batch, face_grid=None):
+    """JAX's make_train_step on the global batch: the ERP step on
+    create_mesh(2), or with `face_grid` (n_data, n_face) the cube step under
+    shard_faces on create_mesh_2d(n_data, n_face); the metrics and the
+    step's (unclipped) gradients."""
     import jax
     import jax.numpy as jnp
     import optax
@@ -309,14 +352,16 @@ def jax_meshed_step(params_flax, batch):
     from splatter360_tpu.models.adapter import GaussianAdapterConfig as JAdapterConfig
     from splatter360_tpu.models.encoder import EncoderConfig as JEncoderConfig
     from splatter360_tpu.models.encoder import EncoderCostVolume360 as JEncoder
-    from splatter360_tpu.parallel.mesh import create_mesh, replicate, shard_batch
+    from splatter360_tpu.parallel.mesh import create_mesh, create_mesh_2d, replicate, shard_batch
     from splatter360_tpu.train import state as js
     from splatter360_tpu.train.losses import LossConfig as JLossConfig
 
+    cubes = face_grid is not None
     jcfg = JEncoderConfig(gaussian_adapter=JAdapterConfig(sh_degree=1), **ENC_KW, **ABLATIONS)
     tcfg = js.TrainConfig(optimizer=js.OptimizerConfig(max_steps=100),
                           loss=JLossConfig(lpips_weight=0.0, depth_weight=0.1),
-                          supervision="erp", render_backend="jax", max_per_tile=MAX_PER_TILE)
+                          supervision="cubes" if cubes else "erp", shard_faces=cubes,
+                          render_backend="jax", max_per_tile=MAX_PER_TILE)
     inner = js.make_optimizer(tcfg.optimizer)
 
     def update(grads, opt_state, params=None):
@@ -329,7 +374,7 @@ def jax_meshed_step(params_flax, batch):
     state = js.TrainState(step=jnp.zeros((), jnp.int32), params=params_flax,
                           opt_state=tx.init(params_flax), tx=tx,
                           apply_fn=JEncoder(jcfg).apply)
-    mesh = create_mesh(2)
+    mesh = create_mesh_2d(*face_grid) if cubes else create_mesh(2)
     step = jax.jit(js.make_train_step(jcfg, tcfg, mesh=mesh))
     s1, m1 = step(replicate(mesh, state), shard_batch(mesh, batch))
     to_np = lambda t: jax.tree_util.tree_map(np.asarray, t)  # noqa: E731
@@ -381,8 +426,15 @@ def ranks(tmp_path_factory):
         jax_metrics, jax_grads = jax_meshed_step(params_flax, batch)
         t1 = time.perf_counter()
         single = port_step(params, batch)
-        print(f"parent: JAX's meshed step {t1 - t0:.1f} s, the port's step "
-              f"{time.perf_counter() - t1:.1f} s")
+        t2 = time.perf_counter()
+        faces = {}
+        for grid in FACE_GRIDS:
+            fb = face_batch(batch, grid[0])
+            j_metrics, j_grads = jax_meshed_step(params_flax, fb, face_grid=grid)
+            faces[grid] = dict(jax=(j_metrics, torch_state_from_flax(j_grads)),
+                               single=port_step(params, fb, cubes=True))
+        print(f"parent: JAX's meshed step {t1 - t0:.1f} s, the port's step {t2 - t1:.1f} s, "
+              f"the cube steps (JAX's and the port's) {time.perf_counter() - t2:.1f} s")
         deadline = time.monotonic() + TIMEOUT_S
         while not ctx.join(timeout=max(deadline - time.monotonic(), 0.1)):
             assert time.monotonic() < deadline, f"the ranks did not end within {TIMEOUT_S} s"
@@ -398,7 +450,7 @@ def ranks(tmp_path_factory):
     res = [torch.load(root / f"rank{r}.pt", weights_only=False) for r in range(4)]
     print("ranks' seconds:", [{k: round(v, 1) for k, v in r["seconds"].items()} for r in res])
     return dict(res=res, single=single, jax=(jax_metrics, torch_state_from_flax(jax_grads)),
-                one=one, root=root)
+                faces=faces, one=one, root=root)
 
 
 # ---------------------------------------------------------------- tests
@@ -417,38 +469,72 @@ def test_sharded_renders_across_ranks_match_emulated(ranks, case):
         assert got["grad_diff"] <= 1e-6, (r, got)
 
 
+def check_ranks_agree(got):
+    """The ranks' steps end with the same metrics and parameters bit for bit."""
+    for other in got[1:]:
+        assert other["metrics"] == got[0]["metrics"]
+        assert all(torch.equal(got[0]["params"][k], other["params"][k]) for k in other["params"])
+
+
+def check_against_single(got, single):
+    """A step across ranks against one process's step on the whole batch:
+    metrics at 1e-5 relative, gradients within 1e-5 of max|g|, parameters
+    within lr / 10."""
+    metrics, grads, params = single
+    for k, v in metrics.items():
+        np.testing.assert_allclose(got["metrics"][k], v, rtol=1e-5, err_msg=k)
+    scale = max(float(g.abs().max()) for g in grads.values())
+    worst = max(float((got["grads"][k] - g).abs().max()) / scale for k, g in grads.items())
+    assert set(got["grads"]) == set(grads) and worst <= 1e-5, worst
+    lr = 2e-4 / 25  # the cosine one-cycle schedule's first rate
+    moved = max(float((got["params"][k] - p).abs().max()) for k, p in params.items())
+    print(f"gradients {worst:.2e} of max|g|; parameters {moved:.2e} ({moved / lr:.2e} lr)")
+    assert moved <= lr / 10
+
+
+def check_against_jax(got, jax_step):
+    """A step across ranks against JAX's meshed step on the same global
+    batch: metrics at 1e-4 relative, every leaf's gradient within GRAD_TOL
+    of max|g|."""
+    jax_metrics, jax_grads = jax_step
+    assert set(got["metrics"]) == set(jax_metrics)
+    for k, v in jax_metrics.items():
+        np.testing.assert_allclose(got["metrics"][k], v, rtol=1e-4, err_msg=k)
+    scale = max(float(g.abs().max()) for g in jax_grads.values())
+    rows = sorted(((float((got["grads"][k] - g).abs().max()) / scale, k)
+                   for k, g in jax_grads.items()), reverse=True)
+    print("leaves farthest from JAX (in max|g|):", [(f"{d:.2e}", k) for d, k in rows[:3]])
+    assert set(got["grads"]) == set(jax_grads)
+    assert rows[0][0] <= GRAD_TOL, rows[0]
+
+
 def test_data_parallel_step_matches_single_process(ranks):
     """A train step on 2 ranks (one example each) against one process's step
     on both examples; the ranks end with the same parameters bit for bit."""
-    metrics, grads, params = ranks["single"]
-    r0, r1 = ranks["res"][0]["train"], ranks["res"][1]["train"]
-    assert all(torch.equal(r0["params"][k], r1["params"][k]) for k in r0["params"])
-    assert r0["metrics"] == r1["metrics"]
-    for k, v in metrics.items():
-        np.testing.assert_allclose(r0["metrics"][k], v, rtol=1e-5, err_msg=k)
-    scale = max(float(g.abs().max()) for g in grads.values())
-    worst = max(float((r0["grads"][k] - g).abs().max()) / scale for k, g in grads.items())
-    assert set(r0["grads"]) == set(grads) and worst <= 1e-5, worst
-    lr = 2e-4 / 25  # the cosine one-cycle schedule's first rate
-    moved = max(float((r0["params"][k] - p).abs().max()) for k, p in params.items())
-    print(f"gradients {worst:.2e} of max|g|; parameters {moved:.2e} ({moved / lr:.2e} lr)")
-    assert moved <= lr / 10
+    got = [ranks["res"][r]["train"] for r in range(2)]
+    check_ranks_agree(got)
+    check_against_single(got[0], ranks["single"])
 
 
 def test_data_parallel_step_matches_jax_meshed_step(ranks):
     """The 2-rank step against JAX's step over a 2-device data mesh on the
     same global batch (tests/test_torch_train.py's bars)."""
-    jax_metrics, jax_grads = ranks["jax"]
-    r0 = ranks["res"][0]["train"]
-    assert set(r0["metrics"]) == set(jax_metrics)
-    for k, v in jax_metrics.items():
-        np.testing.assert_allclose(r0["metrics"][k], v, rtol=1e-4, err_msg=k)
-    scale = max(float(g.abs().max()) for g in jax_grads.values())
-    rows = sorted(((float((r0["grads"][k] - g).abs().max()) / scale, k)
-                   for k, g in jax_grads.items()), reverse=True)
-    print("leaves farthest from JAX (in max|g|):", [(f"{d:.2e}", k) for d, k in rows[:3]])
-    assert set(r0["grads"]) == set(jax_grads)
-    assert rows[0][0] <= GRAD_TOL, rows[0]
+    check_against_jax(ranks["res"][0]["train"], ranks["jax"])
+
+
+@pytest.mark.parametrize("grid", FACE_GRIDS, ids=[f"{d}x{f}" for d, f in FACE_GRIDS])
+def test_face_sharded_cube_step_matches_jax(ranks, grid):
+    """A cube train step under train.shard_faces on an (n_data, n_face) gloo
+    grid (6 faces an example, 3 a face rank; the depth L1 over holes, whose
+    global weight sum crosses the ranks): every rank's parameters bit-equal;
+    against the port's single-process cube step on the global batch; and
+    against JAX's make_train_step(mesh=create_mesh_2d(n_data, n_face))."""
+    key = f"faces{grid[0]}x{grid[1]}"
+    got = [res[key] for res in ranks["res"] if key in res]
+    assert len(got) == grid[0] * grid[1]
+    check_ranks_agree(got)
+    check_against_single(got[0], ranks["faces"][grid]["single"])
+    check_against_jax(got[0], ranks["faces"][grid]["jax"])
 
 
 def test_cli_trains_checkpoints_and_resumes_on_two_ranks(ranks):

@@ -44,10 +44,9 @@ FACE_GRAD_TOL = 1e-5
 BAND_CASES = [("k4", 64, 4), ("pad", 48, 8), ("unequal", 160, 4)]
 N = 1500  # Gaussians of the scenes held to JAX (tests/test_render_sharding.py's)
 # the scan compositor's slots a tile in the band renders held to JAX: all of
-# every tile's instances. The port bins the opacity-tightened footprints
-# (parallel/render_sharding.py), JAX's sharded render the loose ones, so
-# their lists differ by instances the gate turns away, and a cut at fewer
-# slots would keep other instances on each side
+# every tile's instances. Both packages' band renders bin the 3-sigma boxes
+# with no elliptical cull (parallel/render_sharding.py), so their tile lists
+# are the same, and no tile's list is cut here
 BAND_MAX_PER_TILE = 4096
 
 
